@@ -1,0 +1,5 @@
+from .adversarial import (acgan_aux_loss, bce_d_loss, bce_g_loss, hinge_d_loss,
+                          hinge_g_loss, l1_loss, wgan_d_loss, wgan_g_loss)
+
+__all__ = ["acgan_aux_loss", "bce_d_loss", "bce_g_loss", "hinge_d_loss",
+           "hinge_g_loss", "l1_loss", "wgan_d_loss", "wgan_g_loss"]

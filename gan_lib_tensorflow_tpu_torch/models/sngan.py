@@ -1,0 +1,162 @@
+"""SNGAN ResNet for CIFAR-10, unconditional (port of the CIFAR half of
+``gan_lib_tensorflow_tpu/models/sngan.py``).
+
+  G: z in R^128 -> Dense -> 4x4x256 -> 3 x (up-ResBlock 256) -> BN -> ReLU ->
+     3x3 conv -> tanh -> [N, 32, 32, 3] (NHWC)
+  D: NHWC image -> OptimizedBlock(128, down) -> ResBlock(128, down) ->
+     2 x ResBlock(128) -> ReLU -> global SUM pool -> SN-Dense(1)
+
+D's 11 spectral-norm weights get their sigmas from one launch of the batched
+power-iteration kernel per forward (``ops/power_iteration.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.func import functional_call
+
+from ..losses import hinge_d_loss, hinge_g_loss
+from ..ops import (BatchNorm, Conv, Dense, DiscOptimizedBlock, DiscResBlock,
+                   GenResBlock, global_sum_pool)
+from ..ops.layers import _Layer
+from ..ops.power_iteration import PowerIterationTable, batched_power_iteration
+from ..train.step import GANSpec
+
+
+def init_weights(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
+    """Re-draw every layer's weights (and SN ``u``) from ``generator``."""
+    for m in module.modules():
+        if isinstance(m, _Layer):
+            m.reset_parameters(generator)
+
+
+class ResNetGenerator(nn.Module):
+    bottom = 4  # spatial size of the Dense output
+
+    def __init__(self, channels: Sequence[int] = (256, 256, 256),
+                 bottom_ch: int = 256, z_dim: int = 128,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.bottom_ch, self.z_dim = bottom_ch, z_dim
+        bottom = self.bottom
+        self.n_blocks = len(channels)
+        self.dense = Dense(z_dim, bottom * bottom * bottom_ch,
+                           compute_dtype=compute_dtype)
+        in_ch = bottom_ch
+        for i, ch in enumerate(channels):
+            self.add_module(f"block{i}", GenResBlock(in_ch, ch, compute_dtype))
+            in_ch = ch
+        self.bn_out = BatchNorm(in_ch, compute_dtype=compute_dtype)
+        self.conv_out = Conv(in_ch, 3, 3, compute_dtype=compute_dtype)
+
+    def forward(self, z: torch.Tensor, train: bool = True, groups: int = 1,
+                update_stats: bool = True) -> torch.Tensor:
+        """z ``[N, z_dim]`` -> images ``[N, 32, 32, 3]`` float32 NHWC.
+        ``groups`` > 1 gives each of that many equal microbatches its own BN
+        batch statistics (and then running stats must not update)."""
+        b, c = self.bottom, self.bottom_ch
+        # the reference reshapes the Dense output NHWC; permuting that to NCHW
+        # keeps its column order and gives channels-last strides
+        h = self.dense(z).view(-1, b, b, c).permute(0, 3, 1, 2)
+        bn = dict(groups=groups, update_stats=update_stats)
+        for i in range(self.n_blocks):
+            h = getattr(self, f"block{i}")(h, train=train, **bn)
+        h = F.relu(self.bn_out(h, use_running_average=not train, **bn))
+        h = self.conv_out(h)
+        return torch.tanh(h.float()).permute(0, 2, 3, 1)
+
+
+class ResNetDiscriminator(nn.Module):
+    """``fused=True`` computes every down-block's conv2-then-pool as one
+    stride-2 conv; same parameters either way."""
+
+    def __init__(self, channels: Sequence[int] = (128, 128, 128, 128),
+                 downsample: Sequence[bool] = (True, True, False, False),
+                 fused: bool = True, compute_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if len(channels) != len(downsample):
+            raise ValueError(f"channels ({len(channels)}) and downsample "
+                             f"({len(downsample)}) must have equal length")
+        self.n_blocks = len(channels)
+        # the input block always downsamples; downsample[0] only aligns tuples
+        self.block0 = DiscOptimizedBlock(3, channels[0], fused, compute_dtype)
+        for i, (ch, down) in enumerate(zip(channels[1:], downsample[1:])):
+            self.add_module(f"block{i + 1}", DiscResBlock(
+                channels[i], ch, down, fused, compute_dtype))
+        self.dense_out = Dense(channels[-1], 1, spectral_norm=True)  # float32
+        # registration order: block0.conv1, conv2, conv_skip, block1..., dense_out
+        self.sn_layers = [m for m in self.modules()
+                          if isinstance(m, _Layer) and m.spectral_norm]
+        self._sn_table = PowerIterationTable()
+
+    def forward(self, x: torch.Tensor, update_sn: bool = False) -> torch.Tensor:
+        """x: NHWC images -> logits ``[N, 1]`` float32. ``update_sn`` advances
+        every ``u`` by one power-iteration step."""
+        sig = batched_power_iteration([m.weight for m in self.sn_layers],
+                                      [m.u for m in self.sn_layers],
+                                      update_sn, self._sn_table)
+        sigmas = dict(zip(self.sn_layers, sig.unbind(0)))
+        h = x.permute(0, 3, 1, 2)
+        for i in range(self.n_blocks):
+            h = getattr(self, f"block{i}")(h, sigmas=sigmas)
+        phi = global_sum_pool(F.relu(h)).float()
+        return self.dense_out(phi, sigma=sigmas[self.dense_out])
+
+
+def cifar_generator(compute_dtype=None) -> ResNetGenerator:
+    return ResNetGenerator(compute_dtype=compute_dtype)
+
+
+def cifar_discriminator(compute_dtype=None) -> ResNetDiscriminator:
+    return ResNetDiscriminator(compute_dtype=compute_dtype)
+
+
+def make_sngan_spec(g_model: ResNetGenerator, d_model: ResNetDiscriminator,
+                    n_critic: int = 5, ema_decay: float = 0.0) -> GANSpec:
+    """Hinge-loss spec (reference ``make_sngan_spec``): every critic substep
+    sees fresh real images and fresh z; ``u`` advances only in ``d_loss``."""
+
+    def prepare_fakes(z_stack: torch.Tensor) -> torch.Tensor:
+        """All n_critic fake microbatches in one G forward, each microbatch
+        with its own BN batch statistics; running stats do not move."""
+        n_micro, n = z_stack.shape[:2]
+        with torch.no_grad():
+            fake = g_model(z_stack.reshape(n_micro * n, -1), train=True,
+                           groups=n_micro, update_stats=False)
+        return fake.reshape(n_micro, n, *fake.shape[1:])
+
+    def d_loss(real: torch.Tensor, fake: torch.Tensor):
+        # one D pass over [real; fake]: exactly one u advance per substep
+        n = real.shape[0]
+        logits = d_model(torch.cat([real, fake], dim=0), update_sn=True)
+        real_logits, fake_logits = logits[:n], logits[n:]
+        loss = hinge_d_loss(real_logits, fake_logits)
+        return loss, {"d_loss": loss.detach(),
+                      "d_real": real_logits.detach().mean(),
+                      "d_fake": fake_logits.detach().mean()}
+
+    def g_loss(z: torch.Tensor) -> torch.Tensor:
+        fake = g_model(z, train=True)
+        return hinge_g_loss(d_model(fake, update_sn=False))
+
+    return GANSpec(prepare_fakes=prepare_fakes, d_loss=d_loss, g_loss=g_loss,
+                   n_critic=n_critic, ema_decay=ema_decay, z_dim=g_model.z_dim)
+
+
+def make_sampler(g_model: ResNetGenerator):
+    """``sample(state, z)``: G at ``train=False`` with the EMA parameters
+    (G's own when the state has no EMA) and the training run's BN running
+    stats, as the reference pairs them (``sngan.py:231-255``)."""
+
+    @torch.no_grad()
+    def sample(state, z: torch.Tensor) -> torch.Tensor:
+        if state.ema_params is not None:
+            return functional_call(g_model, state.ema_params, (z,),
+                                   {"train": False})
+        return g_model(z, train=False)
+
+    return sample

@@ -1,0 +1,67 @@
+"""Algebraically fused resize-convolutions (port of
+``gan_lib_tensorflow_tpu/ops/fused.py``). Tensors are NCHW, weights OIHW.
+
+``conv_kxk(nearest_up2(x))`` is one stride-2 transposed conv with the derived
+(k+1)x(k+1) kernel ``fuse_up2_kernel(w)``; ``downsample_avg(conv_kxk(x))`` is
+one stride-2 conv with ``fuse_down2_kernel(w)``.
+
+The reference calls ``lax.conv_transpose(x, K, (2, 2), "SAME")`` with the
+default ``transpose_kernel=False``: a correlation of the 2x-dilated input with
+K, unflipped, padded by (pad_a, pad_b) = (k_eff - 1 - p) on both sides for
+the (k+1)-tap kernel (2 for 4x4, 1 for 2x2). ``conv_transpose2d`` correlates
+with the spatially flipped kernel laid out ``[in, out, kh, kw]``, so the port
+hands it ``K`` flipped and transposed, with ``padding = k - 1 - pad_a``: the
+output is exactly ``2H x 2W``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def fuse_up2_kernel(w: torch.Tensor) -> torch.Tensor:
+    """(O, I, k, k) -> (O, I, k+1, k+1): the transposed-conv kernel equal to
+    nearest-up2-then-conv with ``w``. ``F.pad`` takes (left, right, top,
+    bottom) of W then H."""
+    return (F.pad(w, (1, 0, 1, 0)) + F.pad(w, (0, 1, 1, 0))
+            + F.pad(w, (1, 0, 0, 1)) + F.pad(w, (0, 1, 0, 1)))
+
+
+def upsample2x_conv(x: torch.Tensor, w: torch.Tensor,
+                    compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """conv(nearest_up2(x), w, SAME) without the upsampled activation.
+
+    x: NCHW, w: OIHW (square, odd k). Output ``[N, O, 2H, 2W]``."""
+    K = fuse_up2_kernel(w)
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+        K = K.to(compute_dtype)
+    kk = K.shape[-1]
+    # XLA SAME transpose padding for stride 2: pad_a = ceil(k/2) when
+    # k > 3 else k - 1; both come to k - 1 - pad_a = (k - 2) // 2 here
+    pad_a = -(-kk // 2) if 2 <= kk - 1 else kk - 1
+    return F.conv_transpose2d(x, K.flip(2, 3).transpose(0, 1), stride=2,
+                              padding=kk - 1 - pad_a)
+
+
+def fuse_down2_kernel(w: torch.Tensor) -> torch.Tensor:
+    """The stride-2 kernel equal to conv-then-box-downsample (the mean of the
+    four shifted paddings)."""
+    return fuse_up2_kernel(w) * 0.25
+
+
+def conv_downscale2x(x: torch.Tensor, w: torch.Tensor,
+                     compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """downsample_avg(conv(x, w, SAME)) without the full-res conv output.
+
+    x: NCHW with even H, W; w: OIHW (square, odd k). Zero-padding (k-1)/2 on
+    each side reproduces the SAME edges (reference ``fused.py:73-78``)."""
+    K = fuse_down2_kernel(w)
+    p = (w.shape[-1] - 1) // 2
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+        K = K.to(compute_dtype)
+    return F.conv2d(x, K, stride=2, padding=p)

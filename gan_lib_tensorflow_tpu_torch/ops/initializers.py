@@ -1,0 +1,32 @@
+"""Weight initializers (port of ``gan_lib_tensorflow_tpu/ops/initializers.py``).
+
+Only the ones on the SNGAN CIFAR path. Init matches the JAX package in
+distribution, not in bits: the parity tests carry weights across with
+``convert.py``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+# std of a unit normal truncated to [-2, 2]; flax's variance_scaling with
+# "truncated_normal" divides by it so the truncated draw keeps the variance
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def he_normal_(w: torch.Tensor, fan_in: int,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax ``variance_scaling(2.0, "fan_in", "truncated_normal")``."""
+    std = math.sqrt(2.0 / fan_in) / _TRUNC_STD
+    return torch.nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                       generator=generator)
+
+
+@torch.no_grad()
+def unit_normal_(w: torch.Tensor,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    return w.normal_(0.0, 1.0, generator=generator)
