@@ -6,17 +6,36 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (each prints its own lines; any failure exits non-zero before the
 final line):
   1. device: torch's name for the card, and nvidia-smi's name and power limit
-  2. build: compile the hand-written kernel (nvcc, sm_90a) from csrc/
-  3. kernel vs plain: the batched power-iteration kernel against its plain
-     PyTorch version on the card (sigma, u', v and d sigma / dW; rtol 1e-4,
-     float32 with TF32 off), at the CIFAR-D and tests/test_pallas.py shapes
-  4. main path: the fused SNGAN CIFAR-10 train step at full width (batch 64,
-     n_critic 5, bf16 compute, EMA 0.9999, on-device fake data) through the
-     port's CLI ``build`` and ``train_loop``; images/s, ms/step, peak memory;
-     the kernel must launch 6 times per step (5 critic D forwards + 1 in the
-     G loss); then D and G forwards in float32 on the card against the CPU
-  5. kernel timing at the main path's shapes (CUDA events): kernel, plain
-     version and the bound of the work on this card
+  2. build: compile both hand-written kernels (nvcc, sm_90a) from csrc/, one
+     nvcc process per source, started together
+  3. power-iteration kernel vs plain: the batched power-iteration kernel
+     against its plain PyTorch version on the card (sigma, u', v and
+     d sigma / dW; rtol 1e-4, float32 with TF32 off), at the CIFAR-D and
+     tests/test_pallas.py shapes
+  4. fade-in kernel vs plain: ``fadein_blend`` against its plain version
+     (rtol 1e-5, atol 1e-6) at the tests/test_pallas.py shape with alpha
+     0, 0.37 and 1, at both PGGAN 1024^2 shapes in channels-last layout, and
+     at a ragged, unaligned size; first gradients and a double backward
+  5. SNGAN main path: the fused SNGAN CIFAR-10 train step at full width
+     (batch 64, n_critic 5, bf16 compute, EMA 0.9999, on-device fake data)
+     through the port's CLI ``build`` and ``train_loop``; images/s, ms/step,
+     peak memory; the power-iteration kernel must launch 6 times per step
+     (5 critic D forwards + 1 in the G loss); then D and G forwards in
+     float32 on the card against the CPU
+  6. PGGAN main path: the ladder 4^2 -> 1024^2 at full width (Karras
+     channels, z 512, Karras batch schedule, fused_scale D blocks from 128,
+     bf16) through the port's CLI parsing and ``train_pggan_ladder``, 2 steps
+     per phase (17 phases, 8 of them transitions); the fade-in kernel must
+     launch 6 times per transition step and never in a stabilize step, every
+     logged metric must be finite, and every tensor shared across a
+     migration must be carried bit-exact
+  7. PGGAN 1024^2 transition phase at batch 4, built by the ladder's own
+     ``build_phase``: images/s, ms/step, peak memory; then full-width
+     float32 G and D of the 64^2 transition stage on the card against the
+     CPU (rtol 1e-3, atol 1e-3)
+  8. kernel timing at the main paths' shapes (CUDA events): each kernel,
+     its plain version, the one PyTorch call that computes the same function
+     where there is one, and the bound of the work on this card
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -24,8 +43,10 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -33,12 +54,20 @@ import sys
 import time
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s
-# outside the tensor cores. The kernel's work is fp32 matrix-vector.
+# outside the tensor cores. Both kernels' work is fp32 and not on the
+# tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 
 WARM_STEPS, TIMED_STEPS = 3, 20
 N_CRITIC, BATCH = 5, 64
+PGGAN_STEPS_PER_PHASE = 2
+PGGAN_WARM, PGGAN_TIMED = 3, 10
+
+# shapes of the two fade-ins of the PGGAN 1024^2 transition step at batch 4:
+# G's RGB [N, 3, 1024, 1024], D's first block output [N, 32, 512, 512]
+FADEIN_MAIN_SHAPES = [(4, 3, 1024, 1024), (4, 32, 512, 512)]
+FADEIN_PALLAS_SHAPE = (3, 17, 9, 4)  # tests/test_pallas.py:37
 
 # [fan_in, out] of the 11 CIFAR-D spectral-norm weights, and of test_pallas.py
 CIFAR_D_SHAPES = ([(27, 128), (1152, 128), (3, 128), (1152, 128), (1152, 128),
@@ -109,6 +138,62 @@ def compare_kernel(pi, torch, shapes, seed):
     return err
 
 
+def compare_fadein(fd, torch):
+    """The fade-in kernel vs its plain version: outputs, first gradients and
+    a double backward. Returns the max abs error of the outputs."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    cl = torch.channels_last
+    cases = [(FADEIN_PALLAS_SHAPE, a, None) for a in (0.0, 0.37, 1.0)]
+    cases += [(s, 0.37, cl) for s in FADEIN_MAIN_SHAPES]
+    cases.append(((1001,), 0.37, "unaligned"))  # scalar path and ragged tail
+    err = 0.0
+    for shape, alpha, layout in cases:
+        if layout == "unaligned":
+            a = torch.randn(shape[0] + 1, device="cuda", generator=g)[1:]
+            b = torch.randn(shape[0] + 1, device="cuda", generator=g)[1:]
+        else:
+            a = torch.randn(shape, device="cuda", generator=g)
+            b = torch.randn(shape, device="cuda", generator=g)
+            if layout is not None:
+                a, b = a.contiguous(memory_format=layout), b.contiguous(memory_format=layout)
+        before = fd.launches
+        out = fd.fadein_blend(a, b, alpha)
+        check(fd.launches == before + 1, "fade-in launch counter did not advance")
+        check(out.stride() == a.stride(), f"output strides {out.stride()} != {a.stride()}")
+        ref = fd.plain_fadein_blend(a, b, alpha)
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+        err = max(err, float((out - ref).abs().max()))
+    # first gradients through the wrapper vs through the plain version
+    a = torch.randn(FADEIN_MAIN_SHAPES[1], device="cuda", generator=g).contiguous(memory_format=cl)
+    b = torch.randn_like(a)
+    r = torch.randn_like(a)
+    grads = []
+    for fn in (fd.fadein_blend, fd.plain_fadein_blend):
+        ag, bg = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        (fn(ag, bg, 0.37) * r).sum().backward()
+        grads.append((ag.grad, bg.grad))
+    for x, y in zip(*grads):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6)
+    # double backward, as the gradient penalty takes it through D's blend
+    x0 = torch.randn(4, 32, 16, 16, device="cuda", generator=g).contiguous(memory_format=cl)
+    second = []
+    for fn in (fd.fadein_blend, fd.plain_fadein_blend):
+        w = torch.tensor(1.7, device="cuda", requires_grad=True)
+        x = x0.clone().requires_grad_(True)
+        (gx,) = torch.autograd.grad((fn(w * x, x * x, 0.3) ** 2).sum(), x, create_graph=True)
+        (gw,) = torch.autograd.grad((gx ** 2).sum(), w)
+        second.append(gw)
+    torch.testing.assert_close(second[0], second[1], rtol=1e-5, atol=1e-6)
+    return err
+
+
+def snapshot(st):
+    """Every tensor of G, D and the EMA, cloned on the device."""
+    return {("g", n): p.detach().clone() for n, p in st.g.named_parameters()} | {
+        ("d", n): p.detach().clone() for n, p in st.d.named_parameters()} | {
+        ("ema", n): t.clone() for n, t in st.ema_params.items()}
+
+
 def main() -> None:
     import torch
 
@@ -116,12 +201,16 @@ def main() -> None:
         raise SystemExit("chip_smoke FAILED: CUDA is not available")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from gan_lib_tensorflow_tpu_torch.cli import common, train_sngan
-        from gan_lib_tensorflow_tpu_torch.models import sngan
+        from gan_lib_tensorflow_tpu_torch.cli import common, train_pggan, train_sngan
+        from gan_lib_tensorflow_tpu_torch.models import pggan, sngan
+        from gan_lib_tensorflow_tpu_torch.ops import fadein as fd
+        from gan_lib_tensorflow_tpu_torch.ops import init_weights
         from gan_lib_tensorflow_tpu_torch.ops import power_iteration as pi
         from gan_lib_tensorflow_tpu_torch.train import (LoopConfig,
                                                         make_train_step,
                                                         train_loop)
+        from gan_lib_tensorflow_tpu_torch.train.pggan_loop import (build_phase,
+                                                                   train_pggan_ladder)
     except ImportError as e:
         raise SystemExit("chip_smoke FAILED: run it from the repository root "
                          f"(the port's package is missing: {e})")
@@ -141,21 +230,30 @@ def main() -> None:
 
     phase("2 build")
     t0 = time.perf_counter()
-    pi.load_library()
+    libraries = [pi.library, fd.library]
+    with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
+        for fut in [pool.submit(lib.load) for lib in libraries]:
+            fut.result()
     build_s = time.perf_counter() - t0
-    print(f"kernel build+load: {build_s:.2f} s")
-    for line in pi.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("ptxas:", line.strip())
+    print(f"kernels build+load (parallel nvcc): {build_s:.2f} s")
+    for lib in libraries:
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {lib.name}:", line.strip())
 
-    phase("3 kernel vs plain")
+    phase("3 power-iteration kernel vs plain")
     before = pi.launches
     err = max(compare_kernel(pi, torch, CIFAR_D_SHAPES, 0),
               compare_kernel(pi, torch, PALLAS_SHAPES, 1))
     check(pi.launches > before, "launch counter did not advance")
     print(f"batched_power_iteration: sigma/u'/v/grad agree, max abs err {err:.3e}")
 
-    phase("4 fused SNGAN CIFAR-10 step")
+    phase("4 fade-in kernel vs plain")
+    fade_err = compare_fadein(fd, torch)
+    print(f"fadein_blend: outputs, gradients and double backward agree "
+          f"(rtol 1e-5, atol 1e-6), max abs err {fade_err:.3e}")
+
+    phase("5 SNGAN main path: fused CIFAR-10 step")
     args = train_sngan.parse_args([
         "--data", "fake", "--device", "cuda", "--batch-size", str(BATCH),
         "--n-critic", str(N_CRITIC), "--ema-decay", "0.9999",
@@ -165,7 +263,7 @@ def main() -> None:
     step_fn = make_train_step(spec)
     logs = []
     log_fn = lambda it, m: logs.append((it, m))
-    pi.launches = 0  # count the main path's launches only
+    pi.launches = 0  # count this path's launches only
     train_loop(state, step_fn, source, LoopConfig(WARM_STEPS, WARM_STEPS), log_fn)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -201,7 +299,108 @@ def main() -> None:
         torch.testing.assert_close(logits.cpu(), logits_cpu, rtol=1e-3, atol=1e-3)
     print("float32 G and D on the card agree with the CPU (rtol 1e-3, atol 1e-3)")
 
-    phase("5 kernel timing at the main path's shapes")
+    phase("6 PGGAN main path: ladder 4x4 -> 1024x1024")
+    pg_args = train_pggan.parse_args([
+        "--data", "fake", "--device", "cuda", "--final-resolution", "1024",
+        "--steps-per-phase", str(PGGAN_STEPS_PER_PHASE), "--log-every", "1",
+        "--compute-dtype", "bf16"])
+    cfg = train_pggan.ladder_config(pg_args)
+    per_phase, pg_logs, carried = [], [], {}
+    last = {}
+
+    def phase_hook(when, res, name, st):
+        if when == "start":
+            if last:  # every tensor shared with the phase before, bit-exact
+                now = snapshot(st)
+                shared = [k for k in last if k in now and now[k].shape == last[k].shape]
+                check(shared and all(torch.equal(last[k], now[k]) for k in shared),
+                      f"trunk not carried bit-exact into {res}x{res} {name}")
+                carried[(res, name)] = len(shared)
+            last.clear()
+            per_phase.append([res, name, fd.launches, pi.launches, time.perf_counter()])
+        else:
+            torch.cuda.synchronize()
+            rec = per_phase[-1]
+            rec[2], rec[3] = fd.launches - rec[2], pi.launches - rec[3]
+            rec[4] = time.perf_counter() - rec[4]
+            rec.append(pg_logs[-1])
+            last.update(snapshot(st))
+
+    fd.launches = 0  # count this path's launches only
+    pi.launches = 0
+    t0 = time.perf_counter()
+    pg_state = train_pggan_ladder(cfg, train_pggan.source_factory(pg_args),
+                                  phase_hook=phase_hook,
+                                  log_fn=lambda it, m: pg_logs.append(m))
+    torch.cuda.synchronize()
+    ladder_s = time.perf_counter() - t0
+    ladder_launches = fd.launches
+    last.clear()
+    n_trans = sum(1 for r in per_phase if r[1] == "transition")
+    for res, name, n_fd, n_pi, secs, metrics in per_phase:
+        want = 6 * PGGAN_STEPS_PER_PHASE if name == "transition" else 0
+        print(f"  {res:4d}x{res:<4d} {name:10s} fade-in launches {n_fd:2d} (want {want}), "
+              f"{secs:.2f} s, tensors carried {carried.get((res, name), 0)}, "
+              + " ".join(f"{k} {v:.4g}" for k, v in metrics.items()))
+        check(n_fd == want and n_pi == 0,
+              f"{res}x{res} {name}: {n_fd} fade-in launches, want {want}")
+    check(len(per_phase) == 17 and n_trans == 8, f"{len(per_phase)} phases, want 17")
+    check(len(carried) == 16, "a migration was not checked")
+    check(ladder_launches == 6 * PGGAN_STEPS_PER_PHASE * n_trans,
+          f"{ladder_launches} fade-in launches in the ladder")
+    check(len(pg_logs) == 17 * PGGAN_STEPS_PER_PHASE and all(
+        math.isfinite(v) for m in pg_logs for v in m.values()), "non-finite ladder metrics")
+    check(pg_state.step == PGGAN_STEPS_PER_PHASE and pg_state.alpha == 1.0,
+          "ladder did not end in the 1024x1024 stabilize phase")
+    print(f"ladder: {len(per_phase)} phases in {ladder_s:.1f} s, fade-in launches "
+          f"{ladder_launches} ({n_trans} transitions x {PGGAN_STEPS_PER_PHASE} steps x 6)")
+    del pg_state
+
+    phase("7 PGGAN 1024x1024 transition phase, batch 4")
+    ph = build_phase(cfg, 1024, "transition")
+    pg_source = iter(train_pggan.source_factory(pg_args)(1024, ph.batch))
+    pg_step = make_train_step(ph.spec)
+    for i in range(PGGAN_WARM):
+        ph.state.alpha = ph.alpha_fn(i)
+        pg_step(ph.state, next(pg_source))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(PGGAN_WARM, PGGAN_WARM + PGGAN_TIMED):
+        ph.state.alpha = ph.alpha_fn(i)
+        pg_metrics = pg_step(ph.state, next(pg_source))
+    torch.cuda.synchronize()
+    pg_dt = (time.perf_counter() - t0) / PGGAN_TIMED
+    check(all(math.isfinite(float(v)) for v in pg_metrics.values()), "non-finite 1024 metrics")
+    print(f"PGGAN 1024x1024 transition batch {ph.batch}: images/s/GPU "
+          f"{ph.batch / pg_dt:.2f}  ms/step: {1e3 * pg_dt:.2f}  peak memory: "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB  "
+          f"[{smi.splitlines()[0]}]")
+    del ph, pg_step, pg_source
+
+    # full-width float32 G and D of the 64x64 transition stage, card vs CPU
+    g64 = pggan.PGGANGenerator(resolution=64, fade_in=True)
+    d64 = pggan.PGGANDiscriminator(resolution=64, fade_in=True, fused_from=128)
+    gen = torch.Generator().manual_seed(3)
+    for net in (g64, d64):
+        init_weights(net, gen)
+    z = torch.randn(4, 512, generator=gen)
+    with torch.no_grad():
+        imgs_cpu = g64(z, 0.37)
+        logits_cpu = d64(imgs_cpu, 0.37)
+        before = fd.launches
+        imgs = g64.cuda()(z.cuda(), 0.37)
+        logits = d64.cuda()(imgs, 0.37)
+    check(fd.launches == before + 2, "the 64x64 stage did not launch the fade-in kernel")
+    check(tuple(imgs.shape) == (4, 64, 64, 3) and bool(torch.isfinite(imgs).all()),
+          f"PGGAN generator output {tuple(imgs.shape)} not finite")
+    torch.testing.assert_close(imgs.cpu(), imgs_cpu, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(logits.cpu(), logits_cpu, rtol=1e-3, atol=1e-3)
+    print("float32 PGGAN 64x64 transition G and D on the card agree with the CPU "
+          "(rtol 1e-3, atol 1e-3)")
+    del g64, d64
+
+    phase("8 kernel timing at the main paths' shapes")
     ws = [m.weight.detach() for m in d.sn_layers]
     us = [m.u.detach().clone() for m in d.sn_layers]
     table = pi.PowerIterationTable()
@@ -217,6 +416,32 @@ def main() -> None:
           f"{1e3 * plain_ms:.2f} us, bound {1e3 * bound_ms:.3f} us ({bound_by}: "
           f"{n_bytes} B, {n_flops} flop), library_ms: none  [{smi.splitlines()[0]}]")
 
+    # fade-in: the step's two blends; the bound counts a and b read once and
+    # out written once, 12 bytes per element; 3 flops per element are far
+    # below the fp32 rate
+    cl = torch.channels_last
+    fade = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for shape in FADEIN_MAIN_SHAPES:
+        a = torch.randn(shape, device="cuda").contiguous(memory_format=cl)
+        b = torch.randn(shape, device="cuda").contiguous(memory_format=cl)
+        n = a.numel()
+        k_ms = cuda_ms(lambda: fd.launch(a, b, 0.37), 50)
+        p_ms = cuda_ms(lambda: fd.plain_fadein_blend(a, b, 0.37), 50)
+        l_ms = cuda_ms(lambda: torch.lerp(b, a, 0.37), 50)
+        n_bytes, n_flops = 12 * n, 3 * n
+        b_ms = 1e3 * max(n_bytes / PEAK_BYTES_PER_S, n_flops / PEAK_FP32_FLOPS)
+        print(f"fadein_blend {list(shape)} channels-last: kernel {1e3 * k_ms:.2f} us, plain "
+              f"{1e3 * p_ms:.2f} us, torch.lerp {1e3 * l_ms:.2f} us, bound "
+              f"{1e3 * b_ms:.2f} us (bytes: {n_bytes} B, {n_flops} flop), "
+              f"{n_bytes / k_ms / 1e9:.3f} TB/s  [{smi.splitlines()[0]}]")
+        for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms),
+                       ("bound_ms", b_ms)):
+            fade[key] += v / len(FADEIN_MAIN_SHAPES)
+        del a, b
+    print(f"fadein_blend: one 1024x1024 transition step launches it 6 times "
+          f"(G 2 at {list(FADEIN_MAIN_SHAPES[0])}, D 4 at {list(FADEIN_MAIN_SHAPES[1])}); "
+          f"the JSON line gives the mean of one launch at each shape")
+
     print(json.dumps({"kernels": [{
         "name": "batched_power_iteration",
         "route": "cuda",
@@ -229,6 +454,18 @@ def main() -> None:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+    }, {
+        "name": "fadein_blend",
+        "route": "cuda",
+        "source": "gan_lib_tensorflow_tpu_torch/csrc/fadein_blend.cu",
+        "replaces": "gan_lib_tensorflow_tpu/ops/pallas_kernels.py:122",
+        "launches": ladder_launches,
+        "max_abs_err": fade_err,
+        "ms": fade["ms"],
+        "plain_ms": fade["plain_ms"],
+        "bound_ms": fade["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": fade["library_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

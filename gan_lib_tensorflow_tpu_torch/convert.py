@@ -9,7 +9,11 @@ Adam ``mu``/``nu``/``count`` become ``torch.optim.Adam``'s ``exp_avg``/
 flax path ``block0/conv1/kernel`` is the port's ``block0.conv1.weight``.
 
 G's first Dense output is reshaped NHWC in both packages (the port permutes
-the NHWC view to NCHW afterwards), so its columns need no permutation.
+the NHWC view to NCHW afterwards), so its columns need no permutation. The
+same holds for the input of PGGAN D's ``dense_4``: the reference flattens
+its NHWC map, and the port flattens an NHWC view of its NCHW map, so the
+rows of that kernel keep their order too. PGGAN states have no ``'sn'`` or
+``'batch_stats'`` collections; their fade-in ``alpha`` is carried over.
 
 The input can be the state object itself after ``tree_map(np.asarray, ...)``
 or a mapping of its fields; optax states are read by their ``count``, ``mu``
@@ -117,3 +121,7 @@ def load_jax_state(state, jax_state: Any) -> None:
         state.ema_params = {n: torch.as_tensor(ema[n]).to(p)
                             for n, p in state.g.named_parameters()}
     state.step = int(np.asarray(_field(jax_state, "step")))
+    alpha = (jax_state.get("alpha") if isinstance(jax_state, Mapping)
+             else getattr(jax_state, "alpha", None))
+    if alpha is not None:
+        state.alpha = float(np.asarray(alpha))

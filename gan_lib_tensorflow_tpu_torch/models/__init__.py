@@ -1,3 +1,3 @@
-from . import sngan
+from . import pggan, sngan
 
-__all__ = ["sngan"]
+__all__ = ["pggan", "sngan"]

@@ -27,13 +27,6 @@ from ..ops.power_iteration import PowerIterationTable, batched_power_iteration
 from ..train.step import GANSpec
 
 
-def init_weights(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
-    """Re-draw every layer's weights (and SN ``u``) from ``generator``."""
-    for m in module.modules():
-        if isinstance(m, _Layer):
-            m.reset_parameters(generator)
-
-
 class ResNetGenerator(nn.Module):
     bottom = 4  # spatial size of the Dense output
 
@@ -118,9 +111,10 @@ def cifar_discriminator(compute_dtype=None) -> ResNetDiscriminator:
 def make_sngan_spec(g_model: ResNetGenerator, d_model: ResNetDiscriminator,
                     n_critic: int = 5, ema_decay: float = 0.0) -> GANSpec:
     """Hinge-loss spec (reference ``make_sngan_spec``): every critic substep
-    sees fresh real images and fresh z; ``u`` advances only in ``d_loss``."""
+    sees fresh real images and fresh z; ``u`` advances only in ``d_loss``.
+    The fade-in ``alpha``, the noise generator and ``u_gp`` are unused."""
 
-    def prepare_fakes(z_stack: torch.Tensor) -> torch.Tensor:
+    def prepare_fakes(z_stack: torch.Tensor, alpha: float) -> torch.Tensor:
         """All n_critic fake microbatches in one G forward, each microbatch
         with its own BN batch statistics; running stats do not move."""
         n_micro, n = z_stack.shape[:2]
@@ -129,7 +123,7 @@ def make_sngan_spec(g_model: ResNetGenerator, d_model: ResNetDiscriminator,
                            groups=n_micro, update_stats=False)
         return fake.reshape(n_micro, n, *fake.shape[1:])
 
-    def d_loss(real: torch.Tensor, fake: torch.Tensor):
+    def d_loss(real: torch.Tensor, fake: torch.Tensor, alpha: float, noise, u_gp):
         # one D pass over [real; fake]: exactly one u advance per substep
         n = real.shape[0]
         logits = d_model(torch.cat([real, fake], dim=0), update_sn=True)
@@ -139,7 +133,7 @@ def make_sngan_spec(g_model: ResNetGenerator, d_model: ResNetDiscriminator,
                       "d_real": real_logits.detach().mean(),
                       "d_fake": fake_logits.detach().mean()}
 
-    def g_loss(z: torch.Tensor) -> torch.Tensor:
+    def g_loss(z: torch.Tensor, alpha: float) -> torch.Tensor:
         fake = g_model(z, train=True)
         return hinge_g_loss(d_model(fake, update_sn=False))
 

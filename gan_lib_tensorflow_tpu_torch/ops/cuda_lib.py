@@ -1,0 +1,73 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each source ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
+compiled with ``nvcc`` for ``sm_90a`` into ``_build/lib<name>_<hash>.so``
+beside this package, where the hash is of the source, so an edited source
+builds anew and an unchanged one is built once. The library is loaded with
+``ctypes``; the caller declares its functions' argument types.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from typing import Callable, Optional
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin: "
+                           "the port's CUDA kernels cannot be built")
+    return path
+
+
+class KernelLibrary:
+    """One kernel source, built once per source version and loaded once per
+    process. ``declare(lib)`` sets the ``argtypes``/``restype`` of its
+    functions; every library also exports ``gl_error_string(int)``."""
+
+    def __init__(self, name: str, declare: Callable[[ctypes.CDLL], None]):
+        self.name = name
+        self.source = os.path.join(CSRC_DIR, f"{name}.cu")
+        self._declare = declare
+        self._lib: Optional[ctypes.CDLL] = None
+        self.build_log = ""  # nvcc's output (ptxas register/shared-memory report)
+
+    def load(self) -> ctypes.CDLL:
+        if self._lib is not None:
+            return self._lib
+        with open(self.source, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()[:16]
+        so = os.path.join(BUILD_DIR, f"lib{self.name}_{digest}.so")
+        if not os.path.exists(so):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{so}.{os.getpid()}.tmp"
+            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, self.source],
+                                  capture_output=True, text=True)
+            self.build_log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {self.source} "
+                                   f"({proc.returncode}):\n{self.build_log}")
+            os.replace(tmp, so)  # atomic: concurrent builders never load half a file
+        lib = ctypes.CDLL(so)
+        self._declare(lib)
+        lib.gl_error_string.argtypes = [ctypes.c_int]
+        lib.gl_error_string.restype = ctypes.c_char_p
+        self._lib = lib
+        return lib
+
+    def check(self, err: int, what: str) -> None:
+        """Raise if a launch returned a CUDA error."""
+        if err != 0:
+            raise RuntimeError(f"{what} launch failed: "
+                               + self.load().gl_error_string(err).decode())

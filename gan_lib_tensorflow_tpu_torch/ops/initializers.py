@@ -1,6 +1,8 @@
 """Weight initializers (port of ``gan_lib_tensorflow_tpu/ops/initializers.py``).
 
-Only the ones on the SNGAN CIFAR path. Init matches the JAX package in
+The truncated He normal of the SNGAN path, and PGGAN's equalized learning
+rate: a unit-normal init with the He multiplier ``he_scale`` applied at
+runtime (Karras et al. 2018, section 4.1). Init matches the JAX package in
 distribution, not in bits: the parity tests carry weights across with
 ``convert.py``.
 """
@@ -30,3 +32,10 @@ def he_normal_(w: torch.Tensor, fan_in: int,
 def unit_normal_(w: torch.Tensor,
                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
     return w.normal_(0.0, 1.0, generator=generator)
+
+
+def he_scale(fan_in: int, gain: float = math.sqrt(2.0)) -> float:
+    """Runtime He multiplier of an equalized-LR layer: gain / sqrt(fan_in).
+    fan_in is the logical kernel's ``kh * kw * in`` (``weight[0].numel()`` of
+    an OIHW or ``[out, in]`` weight)."""
+    return float(gain / math.sqrt(fan_in))

@@ -1,4 +1,6 @@
-"""BatchNorm (port of ``gan_lib_tensorflow_tpu/ops/norms.py:BatchNorm``).
+"""Normalizations (port of ``gan_lib_tensorflow_tpu/ops/norms.py``): the
+SNGAN path's ``BatchNorm``, and PGGAN's ``pixel_norm`` and
+``minibatch_stddev`` (stateless functions).
 
 Not torch's ``BatchNorm2d``: ``momentum`` is the fraction of the running
 stats kept (0.9), the variance is the biased ``max(E[x^2] - E[x]^2, 0)``,
@@ -59,3 +61,30 @@ class BatchNorm(nn.Module):
         y = (xf - mean) * torch.rsqrt(var + EPSILON)
         y = y.reshape(x.shape) * self.weight.view(shape) + self.bias.view(shape)
         return y.to(out_dtype)
+
+
+def pixel_norm(x: torch.Tensor, epsilon: float = 1e-8) -> torch.Tensor:
+    """PGGAN PixelNorm: each pixel's feature vector to unit RMS, in float32,
+    cast back. Normalizes dim 1: the channels of NCHW, the features of
+    ``[N, F]`` (reference ``norms.py:155-161`` normalizes NHWC's last axis)."""
+    xf = x.float()
+    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=1, keepdim=True) + epsilon)
+    return y.to(x.dtype)
+
+
+def minibatch_stddev(x: torch.Tensor, group_size: int = 4,
+                     epsilon: float = 1e-8) -> torch.Tensor:
+    """PGGAN minibatch stddev (reference ``norms.py:164-182``): the batch
+    splits as ``reshape(g, n // g, ...)``, so sample i is in group i % (n//g);
+    per group the float32 stddev over its g members, averaged over C, H, W,
+    is appended as one constant channel, last. x: NCHW."""
+    n, c, h, w = x.shape
+    g = min(group_size, n)
+    if n % g:
+        raise ValueError(f"batch {n} not divisible by group size {g}")
+    xf = x.float().reshape(g, n // g, c, h, w)
+    mean = xf.mean(dim=0, keepdim=True)
+    var = torch.mean((xf - mean) ** 2, dim=0)
+    avg = torch.sqrt(var + epsilon).mean(dim=(1, 2, 3), keepdim=True)  # [n//g, 1, 1, 1]
+    feat = avg[None].expand(g, n // g, 1, h, w).reshape(n, 1, h, w)
+    return torch.cat([x, feat.to(x.dtype)], dim=1)

@@ -9,72 +9,33 @@ hold ``K`` floats each.
 
 On CPU tensors the wrapper runs the plain version (a loop over
 ``ops/sn.py:power_iteration``). On CUDA tensors it launches the kernel, or
-raises: there is no fallback. The kernel is compiled with ``nvcc`` for
-``sm_90a`` at first use into ``_build/`` beside this package and loaded with
-``ctypes``.
+raises: there is no fallback. The kernel is built at first use by
+``ops/cuda_lib.py``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from .cuda_lib import KernelLibrary
 from .sn import power_iteration
 
 # Launches of the CUDA kernel in this process (the plain version does not
 # count). Callers reset it to 0 to count the launches of one run.
 launches = 0
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "power_iteration.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lib = None
-build_log = ""  # nvcc's output (ptxas register/shared-memory report)
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin: "
-                           "the power-iteration kernel cannot be built")
-    return path
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (once per source version) and load the kernel library."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"libpower_iteration_{digest}.so")
-    if not os.path.exists(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-        os.replace(tmp, so)  # atomic: concurrent builders never load half a file
-    lib = ctypes.CDLL(so)
+def _declare(lib: ctypes.CDLL) -> None:
     lib.gl_power_iteration.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.gl_power_iteration.restype = ctypes.c_int
-    lib.gl_error_string.argtypes = [ctypes.c_int]
-    lib.gl_error_string.restype = ctypes.c_char_p
-    _lib = lib
-    return lib
+
+
+library = KernelLibrary("power_iteration", _declare)
 
 
 def _dims(weights: Sequence[torch.Tensor]) -> Tuple[List[int], List[int]]:
@@ -145,15 +106,13 @@ def launch(weights: Sequence[torch.Tensor], us: Sequence[torch.Tensor],
     sigma = torch.empty(len(weights), device=dev, dtype=torch.float32)
     u_out = torch.empty(sum(t.ks), device=dev, dtype=torch.float32)
     v_out = torch.empty(sum(t.ms), device=dev, dtype=torch.float32)
-    lib = load_library()
+    lib = library.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.gl_power_iteration(
             t.table.data_ptr(), len(weights), sigma.data_ptr(),
             u_out.data_ptr(), v_out.data_ptr(), int(write_u), stream)
-    if err != 0:
-        raise RuntimeError("power-iteration kernel launch failed: "
-                           + lib.gl_error_string(err).decode())
+    library.check(err, "power-iteration kernel")
     launches += 1
     return sigma, u_out, v_out
 

@@ -1,0 +1,128 @@
+"""PGGAN progressive-growing ladder (port of ``gan_lib_tensorflow_tpu/train/
+pggan_loop.py:32-178``, without its checkpoints, sampling and spatial
+sharding).
+
+For each level from ``start_resolution`` to ``final_resolution``: a
+transition phase (alpha rises linearly to 1 over the phase) and then a
+stabilize phase; the first level has only the stabilize phase. Every phase
+builds fresh networks and fresh Adam states (``build_phase``); G, D and the
+EMA take every tensor they share by name and shape with the phase before.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Iterable, Iterator, Optional
+
+import torch
+
+from ..models import pggan
+from .loop import LoopConfig, train_loop
+from .state import GANTrainState, create_state
+from .step import GANSpec, make_train_step
+
+# The reference's batch schedule shrinks with resolution to fit memory
+DEFAULT_BATCH_BY_RES = {4: 16, 8: 16, 16: 16, 32: 16, 64: 16,
+                        128: 16, 256: 8, 512: 4, 1024: 4}
+
+
+@dataclasses.dataclass
+class LadderConfig:
+    start_resolution: int = 4
+    final_resolution: int = 1024
+    images_per_phase: int = 600_000
+    batch_by_res: Dict[int, int] = dataclasses.field(
+        default_factory=lambda: dict(DEFAULT_BATCH_BY_RES))
+    lr: float = 1e-3
+    beta1: float = 0.0
+    beta2: float = 0.99
+    width_mul: float = 1.0
+    z_dim: int = 512
+    ema_decay: float = 0.999
+    compute_dtype: Optional[torch.dtype] = None
+    seed: int = 0
+    log_every: int = 100
+    # fixed step count per phase for short runs (None: images_per_phase / batch)
+    steps_per_phase: Optional[int] = None
+    # the fused_scale D blocks from this resolution upward (0 = never)
+    fused_from_resolution: int = 0
+    device: str = "cuda"
+
+
+def resolutions(cfg: LadderConfig) -> Iterator[int]:
+    r = cfg.start_resolution
+    while r <= cfg.final_resolution:
+        yield r
+        r *= 2
+
+
+@dataclasses.dataclass
+class Phase:
+    """One (resolution, phase) of the ladder, ready to train."""
+    resolution: int
+    name: str
+    spec: GANSpec
+    state: GANTrainState
+    batch: int
+    steps: int
+    alpha_fn: Callable[[int], float]
+
+
+def build_phase(cfg: LadderConfig, res: int, phase: str,
+                prev: Optional[GANTrainState] = None) -> Phase:
+    """Networks, spec and state of one phase, with G, D and the EMA migrated
+    from ``prev`` (the state at the end of the phase before)."""
+    fade = phase == "transition"
+    g = pggan.PGGANGenerator(resolution=res, fade_in=fade, z_dim=cfg.z_dim,
+                             width_mul=cfg.width_mul,
+                             compute_dtype=cfg.compute_dtype)
+    d = pggan.PGGANDiscriminator(resolution=res, fade_in=fade,
+                                 width_mul=cfg.width_mul,
+                                 fused_from=cfg.fused_from_resolution,
+                                 compute_dtype=cfg.compute_dtype)
+    spec = pggan.make_pggan_spec(g, d, ema_decay=cfg.ema_decay)
+    state = create_state(g, d, lr=cfg.lr, beta1=cfg.beta1, beta2=cfg.beta2,
+                         ema_decay=cfg.ema_decay,
+                         seed=cfg.seed + res + (0 if fade else 1),
+                         device=cfg.device)
+    if prev is not None:
+        g_copied = pggan.migrate_params(dict(prev.g.named_parameters()),
+                                        dict(g.named_parameters()))
+        d_copied = pggan.migrate_params(dict(prev.d.named_parameters()),
+                                        dict(d.named_parameters()))
+        if prev.ema_params is not None and state.ema_params is not None:
+            pggan.migrate_params(prev.ema_params, state.ema_params)
+        print(f"[pggan] {res}x{res} {phase}: migrated "
+              f"{g_copied} G + {d_copied} D tensors", flush=True)
+    batch = cfg.batch_by_res[res]
+    steps = cfg.steps_per_phase or max(cfg.images_per_phase // batch, 1)
+    alpha_fn = ((lambda i, s=steps: min((i % s + 1) / s, 1.0))
+                if fade else (lambda i: 1.0))
+    return Phase(res, phase, spec, state, batch, steps, alpha_fn)
+
+
+def train_pggan_ladder(
+    cfg: LadderConfig,
+    source_factory: Callable[[int, int], Iterable],
+    phase_hook: Optional[Callable[[str, int, str, GANTrainState], None]] = None,
+    log_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
+) -> GANTrainState:
+    """Run the whole ladder; returns the last phase's state.
+    ``source_factory(resolution, batch)`` yields ``{"image": [1, B, res, res,
+    3]}`` stacks of reals. ``phase_hook(when, res, phase, state)`` is called
+    with ``when='start'`` after migration, before the phase's first step, and
+    with ``when='end'`` after its last."""
+    prev: Optional[GANTrainState] = None
+    for res in resolutions(cfg):
+        for phase in (["stabilize"] if res == cfg.start_resolution
+                      else ["transition", "stabilize"]):
+            ph = build_phase(cfg, res, phase, prev)
+            if phase_hook is not None:
+                phase_hook("start", res, phase, ph.state)
+            loop_cfg = LoopConfig(total_steps=ph.steps, log_every=cfg.log_every)
+            prev = train_loop(ph.state, make_train_step(ph.spec),
+                              source_factory(res, ph.batch), loop_cfg, log_fn,
+                              alpha_fn=ph.alpha_fn)
+            if phase_hook is not None:
+                phase_hook("end", res, phase, prev)
+    return prev

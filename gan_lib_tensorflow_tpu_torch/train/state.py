@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from .. import resolve_device
+from ..ops.layers import init_weights
 
 
 @dataclasses.dataclass
@@ -26,6 +27,9 @@ class GANTrainState:
     g_sched: Optional[torch.optim.lr_scheduler.LRScheduler] = None
     d_sched: Optional[torch.optim.lr_scheduler.LRScheduler] = None
     step: int = 0
+    # PGGAN fade-in weight, a host float the loop sets before each step
+    # (reference state.py:30-32); other families leave it at 1.0
+    alpha: float = 1.0
 
 
 def create_state(g: nn.Module, d: nn.Module, *, lr: float = 2e-4,
@@ -33,11 +37,10 @@ def create_state(g: nn.Module, d: nn.Module, *, lr: float = 2e-4,
                  ema_decay: float = 0.0, seed: int = 0,
                  lr_lambda: Optional[Callable[[int], float]] = None,
                  device="cuda") -> GANTrainState:
-    """Draw both networks' weights from ``seed``, move them to ``device``
-    and build Adam (optax's defaults: eps 1e-8) for each. ``lr_lambda`` maps
+    """Draw both networks' weights from ``seed`` (each layer by its own rule,
+    ``ops/layers.py:init_weights``, so any model family's), move them to
+    ``device`` and build Adam (optax's defaults: eps 1e-8) for each. ``lr_lambda`` maps
     an optimizer's own update count to an lr multiplier."""
-    from ..models.sngan import init_weights
-
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     init_weights(g, gen)

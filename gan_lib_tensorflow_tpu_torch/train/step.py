@@ -18,11 +18,16 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class GANSpec:
-    """What the step needs to know about a model family.
+    """What the step needs to know about a model family. ``alpha`` is the
+    state's fade-in weight (a float; only PGGAN reads it), as the
+    reference's loss signature carries it (``step.py:27-30``).
 
-    prepare_fakes(z_stack [n_critic, B, z_dim]) -> fakes [n_critic, B, ...]
-    d_loss(real, fake) -> (loss, metrics)
-    g_loss(z) -> loss
+    prepare_fakes(z_stack [n_critic, B, z_dim], alpha) -> fakes [n_critic, B, ...]
+    d_loss(real, fake, alpha, noise, u_gp) -> (loss, metrics): ``noise`` is
+        the generator of the critic's own draws (the reference's per-substep
+        rng), ``u_gp`` the gradient penalty's interpolation weights
+        ``[B, 1, 1, 1]`` when the caller hands them in, else None
+    g_loss(z, alpha) -> loss
     """
 
     prepare_fakes: Callable
@@ -34,12 +39,14 @@ class GANSpec:
 
 
 def make_train_step(spec: GANSpec):
-    """``train_step(state, batch, z_critic=None, z_g=None) -> metrics``.
+    """``train_step(state, batch, z_critic=None, z_g=None, u_gp=None) ->
+    metrics``.
 
-    ``batch["image"]`` is ``[n_critic, B, 32, 32, 3]``. z draws come from the
+    ``batch["image"]`` is ``[n_critic, B, S, S, 3]``. Draws come from the
     state's generators unless given (the parity tests feed JAX's draws):
-    ``z_critic`` ``[n_critic, B, z_dim]``, ``z_g`` ``[B, z_dim]``. Metrics are
-    device tensors; reading them waits for the step."""
+    ``z_critic`` ``[n_critic, B, z_dim]``, ``z_g`` ``[B, z_dim]``, ``u_gp``
+    ``[n_critic, B, 1, 1, 1]``. Metrics are device tensors; reading them
+    waits for the step."""
 
     def _apply(params, grads, opt, sched) -> None:
         for p, g in zip(params, grads):
@@ -49,22 +56,24 @@ def make_train_step(spec: GANSpec):
             sched.step()
 
     def train_step(state, batch, z_critic: Optional[torch.Tensor] = None,
-                   z_g: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                   z_g: Optional[torch.Tensor] = None,
+                   u_gp: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         images = batch["image"]
         if images.shape[0] != spec.n_critic:
             raise ValueError(f"batch['image'] must be a [n_critic={spec.n_critic}"
                              f", B, ...] stack, got shape {tuple(images.shape)}")
         if spec.ema_decay > 0 and state.ema_params is None:
             raise ValueError("spec.ema_decay > 0 but state.ema_params is None")
-        n, dev = images.shape[1], images.device
+        n, dev, alpha = images.shape[1], images.device, state.alpha
         if z_critic is None:
             z_critic = torch.randn(spec.n_critic, n, spec.z_dim, device=dev,
                                    generator=state.d_noise)
-        fakes = spec.prepare_fakes(z_critic)
+        fakes = spec.prepare_fakes(z_critic, alpha)
 
         d_params = list(state.d.parameters())
         for i in range(spec.n_critic):
-            loss, metrics = spec.d_loss(images[i], fakes[i])
+            loss, metrics = spec.d_loss(images[i], fakes[i], alpha, state.d_noise,
+                                        None if u_gp is None else u_gp[i])
             _apply(d_params, torch.autograd.grad(loss, d_params),
                    state.d_opt, state.d_sched)
 
@@ -72,7 +81,7 @@ def make_train_step(spec: GANSpec):
             z_g = torch.randn(n, spec.z_dim, device=dev, generator=state.g_noise)
         g_named = list(state.g.named_parameters())
         g_params = [p for _, p in g_named]
-        g_loss = spec.g_loss(z_g)
+        g_loss = spec.g_loss(z_g, alpha)
         _apply(g_params, torch.autograd.grad(g_loss, g_params),
                state.g_opt, state.g_sched)
 

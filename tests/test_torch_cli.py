@@ -77,9 +77,11 @@ def test_import_leaves_jax_out():
     code = (
         "import sys; sys.path.insert(0, %r)\n"
         "import chip_smoke, profile_torch_step\n"
+        "import gan_lib_tensorflow_tpu_torch.cli.train_pggan\n"
         "import gan_lib_tensorflow_tpu_torch.cli.train_sngan\n"
         "import gan_lib_tensorflow_tpu_torch.convert\n"
         "import gan_lib_tensorflow_tpu_torch.models.sngan\n"
+        "import gan_lib_tensorflow_tpu_torch.ops.fadein\n"
         "import gan_lib_tensorflow_tpu_torch.ops.power_iteration\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'gan_lib_tensorflow_tpu')]\n"

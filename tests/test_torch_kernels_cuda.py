@@ -1,17 +1,21 @@
-"""The hand-written CUDA kernels against their plain PyTorch versions, on the
-card. Every test here is marked ``cuda`` and skips without a card (a CUDA
+"""The hand-written CUDA kernels (the batched power iteration and the PGGAN
+fade-in blend) against their plain PyTorch versions, on the card. Every test here is marked ``cuda`` and skips without a card (a CUDA
 kernel has no CPU mode). This file imports no JAX, so on the machine with the
 card it runs without the JAX package's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-float32 with TF32 off; rtol 1e-4 (atol 1e-5 on vector entries near 0).
+float32 with TF32 off. Power iteration rtol 1e-4 (atol 1e-5 on vector
+entries near 0); fade-in rtol 1e-5 / atol 1e-6 (one multiply-add per
+element); networks on the card against the CPU rtol 1e-3 / atol 1e-3.
 """
 
 import pytest
 import torch
 
-from gan_lib_tensorflow_tpu_torch.models import sngan
+from gan_lib_tensorflow_tpu_torch.models import pggan, sngan
+from gan_lib_tensorflow_tpu_torch.ops import fadein as fd
+from gan_lib_tensorflow_tpu_torch.ops import init_weights
 from gan_lib_tensorflow_tpu_torch.ops import power_iteration as pi
 
 pytestmark = pytest.mark.cuda
@@ -77,4 +81,72 @@ def test_discriminator_on_card_matches_cpu(card):
         before = pi.launches
         got = d.to(card)(x.to(card))
     assert pi.launches == before + 1  # one launch for all 11 SN weights
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-3, atol=1e-3)
+
+
+# the tests/test_pallas.py shape, and the PGGAN 1024^2 transition step's two
+# blends at batch 4 (G's RGB, D's first block) in channels-last layout
+FADEIN_CASES = ([((3, 17, 9, 4), a, False) for a in (0.0, 0.37, 1.0)]
+                + [((4, 3, 1024, 1024), 0.37, True), ((4, 32, 512, 512), 0.37, True)])
+
+
+@pytest.mark.parametrize("shape,alpha,channels_last", FADEIN_CASES,
+                         ids=lambda v: str(v))
+def test_fadein_matches_plain(card, shape, alpha, channels_last):
+    g = torch.Generator(device=card).manual_seed(0)
+    a = torch.randn(shape, device=card, generator=g)
+    b = torch.randn(shape, device=card, generator=g)
+    if channels_last:
+        a = a.contiguous(memory_format=torch.channels_last)
+        b = b.contiguous(memory_format=torch.channels_last)
+    before = fd.launches
+    out = fd.fadein_blend(a, b, alpha)
+    assert fd.launches == before + 1
+    assert out.stride() == a.stride()
+    torch.testing.assert_close(out, fd.plain_fadein_blend(a, b, alpha),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,offset", [(1001, 0), (1001, 1), (3, 0), (4096 * 1024 + 3, 2)])
+def test_fadein_ragged_and_unaligned(card, n, offset):
+    """The scalar tail (n % 4) and the unaligned path (a view off a 16-byte
+    boundary)."""
+    a = torch.randn(n + offset, device=card)[offset:]
+    b = torch.randn(n + offset, device=card)[offset:]
+    torch.testing.assert_close(fd.fadein_blend(a, b, 0.37),
+                               fd.plain_fadein_blend(a, b, 0.37), rtol=1e-5, atol=1e-6)
+
+
+def test_fadein_rejects_mismatched_strides(card):
+    a = torch.randn(2, 8, 4, 4, device=card)
+    with pytest.raises(ValueError):
+        fd.fadein_blend(a, a.contiguous(memory_format=torch.channels_last), 0.5)
+    with pytest.raises(ValueError):
+        fd.fadein_blend(a, a.to(torch.bfloat16), 0.5)
+
+
+def test_fadein_gradients_and_double_backward(card):
+    x0 = torch.randn(4, 32, 16, 16, device=card).contiguous(memory_format=torch.channels_last)
+    results = []
+    for fn in (fd.fadein_blend, fd.plain_fadein_blend):
+        w = torch.tensor(1.7, device=card, requires_grad=True)
+        x = x0.clone().requires_grad_(True)
+        (gx,) = torch.autograd.grad((fn(w * x, x * x, 0.3) ** 2).sum(), x,
+                                    create_graph=True)
+        (gw,) = torch.autograd.grad((gx ** 2).sum(), w)
+        results.append((gx.detach(), gw))
+    for a, b in zip(*results):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_pggan_discriminator_64_on_card_matches_cpu(card):
+    """Full width, fade-in at alpha 0.37: the card's kernel launches once."""
+    d = pggan.PGGANDiscriminator(resolution=64, fade_in=True, fused_from=128)
+    init_weights(d, torch.Generator().manual_seed(0))
+    x = torch.tanh(torch.randn(4, 64, 64, 3, generator=torch.Generator().manual_seed(1)))
+    with torch.no_grad():
+        ref = d(x, 0.37)
+        before = fd.launches
+        got = d.to(card)(x.to(card), 0.37)
+    assert fd.launches == before + 1
     torch.testing.assert_close(got.cpu(), ref, rtol=1e-3, atol=1e-3)
