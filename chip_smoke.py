@@ -10,12 +10,14 @@ final line):
      nvcc process per source, started together
   3. power-iteration kernel vs plain: the batched power-iteration kernel
      against its plain PyTorch version on the card (sigma, u', v and
-     d sigma / dW; rtol 1e-4, float32 with TF32 off), at the CIFAR-D and
-     tests/test_pallas.py shapes
+     d sigma / dW; rtol 1e-4, float32 with TF32 off), at the CIFAR-D,
+     tests/test_pallas.py and ImageNet-128 wide shapes; two launches on the
+     same inputs must be bit-identical
   4. fade-in kernel vs plain: ``fadein_blend`` against its plain version
      (rtol 1e-5, atol 1e-6) at the tests/test_pallas.py shape with alpha
      0, 0.37 and 1, at both PGGAN 1024^2 shapes in channels-last layout, and
-     at a ragged, unaligned size; first gradients and a double backward
+     at a ragged, unaligned size; first gradients and a double backward;
+     bit-equal at sizes either side of whole blocks, at offsets 0-3
   5. SNGAN main path: the fused SNGAN CIFAR-10 train step at full width
      (batch 64, n_critic 5, bf16 compute, EMA 0.9999, on-device fake data)
      through the port's CLI ``build`` and ``train_loop``; images/s, ms/step,
@@ -33,9 +35,13 @@ final line):
      ``build_phase``: images/s, ms/step, peak memory; then full-width
      float32 G and D of the 64^2 transition stage on the card against the
      CPU (rtol 1e-3, atol 1e-3)
-  8. kernel timing at the main paths' shapes (CUDA events): each kernel,
-     its plain version, the one PyTorch call that computes the same function
-     where there is one, and the bound of the work on this card
+  8. kernel timing at the main paths' shapes: device time of CUDA-graph
+     replays (many launches captured once, replayed between CUDA events, so
+     the host's launch gaps are left out), taken in turns: each kernel, its
+     plain version, the one PyTorch call that computes the same function
+     where there is one, the bound of the work on this card, the host time
+     of one wrapper call, the power iteration's empty-kernel floor, and
+     nvidia-smi's clocks before and after
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -68,11 +74,21 @@ PGGAN_WARM, PGGAN_TIMED = 3, 10
 # G's RGB [N, 3, 1024, 1024], D's first block output [N, 32, 512, 512]
 FADEIN_MAIN_SHAPES = [(4, 3, 1024, 1024), (4, 32, 512, 512)]
 FADEIN_PALLAS_SHAPE = (3, 17, 9, 4)  # tests/test_pallas.py:37
+FADEIN_BLOCK_ELEMS = 1024 * 4  # one block of csrc/fadein_blend.cu: 1024 threads x float4
 
 # [fan_in, out] of the 11 CIFAR-D spectral-norm weights, and of test_pallas.py
 CIFAR_D_SHAPES = ([(27, 128), (1152, 128), (3, 128), (1152, 128), (1152, 128),
                    (128, 128)] + [(1152, 128)] * 4 + [(128, 1)])
 PALLAS_SHAPES = [(1152, 128), (27, 64), (128, 1), (9, 256)]
+# the SNGAN-projection ImageNet-128 D's widest 3x3 convs (512->1024, 1024->1024):
+# slabs too large for shared memory, streamed from device memory
+IMAGENET_WIDE_SHAPES = [(4608, 1024), (9216, 1024)]
+
+
+def nvidia_smi(fields: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
 
 
 def phase(name: str) -> None:
@@ -84,23 +100,60 @@ def check(cond: bool, msg: str) -> None:
         raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
-def cuda_ms(fn, iters: int, repeats: int = 5) -> float:
-    """Median over ``repeats`` of the mean time of ``iters`` calls, by CUDA
-    events, after a warm-up."""
+def device_ms(fn, iters: int, repeats: int = 5) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured once in a
+    CUDA graph after a warm-up, the graph replayed ``repeats`` times between
+    CUDA events; the median replay over ``iters``. The host's launch gaps are
+    not in it."""
     import torch
-    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up where the capture will run
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
     times = []
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(iters):
-            fn()
+        graph.replay()
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def host_us(fn, calls: int) -> float:
+    """Median host time of one call of ``fn`` (no synchronisation between
+    calls): what a wrapper costs the host per launch."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e6 * statistics.median(times)
+
+
+def timed_in_turns(fns: dict, iters: int, rounds: int = 3) -> dict:
+    """``device_ms`` of each function, taken in turns over ``rounds`` rounds
+    (the order reversed every other round); the median of the rounds."""
+    got = {k: [] for k in fns}
+    for r in range(rounds):
+        for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            got[k].append(device_ms(fns[k], iters))
+    return {k: statistics.median(v) for k, v in got.items()}
 
 
 def compare_kernel(pi, torch, shapes, seed):
@@ -220,9 +273,7 @@ def main() -> None:
 
     phase("1 device")
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    smi = nvidia_smi("name,power.limit")
     print(f"torch device: {kind} (count {torch.cuda.device_count()}), "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     print("allow_tf32: matmul False, cudnn False")
@@ -244,14 +295,31 @@ def main() -> None:
     phase("3 power-iteration kernel vs plain")
     before = pi.launches
     err = max(compare_kernel(pi, torch, CIFAR_D_SHAPES, 0),
-              compare_kernel(pi, torch, PALLAS_SHAPES, 1))
+              compare_kernel(pi, torch, PALLAS_SHAPES, 1),
+              compare_kernel(pi, torch, IMAGENET_WIDE_SHAPES, 2))
     check(pi.launches > before, "launch counter did not advance")
-    print(f"batched_power_iteration: sigma/u'/v/grad agree, max abs err {err:.3e}")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    ws = [torch.randn(k, m, device="cuda", generator=g) for m, k in CIFAR_D_SHAPES]
+    us = [torch.randn(1, k, device="cuda", generator=g) for _, k in CIFAR_D_SHAPES]
+    first, second = pi.launch(ws, us), pi.launch(ws, us)
+    check(all(torch.equal(x, y) for x, y in zip(first, second)),
+          "two launches on the same inputs differ")
+    print(f"batched_power_iteration: sigma/u'/v/grad agree at the CIFAR-D, test_pallas.py "
+          f"and ImageNet-128 wide shapes, max abs err {err:.3e}; two launches bit-identical")
 
     phase("4 fade-in kernel vs plain")
     fade_err = compare_fadein(fd, torch)
+    # either side of a whole number of blocks, aligned and off a 16-byte boundary
+    per_block = FADEIN_BLOCK_ELEMS
+    for n in (per_block - 1, per_block + 1, 3 * per_block - 1, 3 * per_block + 1, 5):
+        for offset in range(4):
+            a = torch.randn(n + offset, device="cuda")[offset:]
+            b = torch.randn(n + offset, device="cuda")[offset:]
+            check(torch.equal(fd.fadein_blend(a, b, 0.37), fd.plain_fadein_blend(a, b, 0.37)),
+                  f"fade-in differs from its plain version at n {n}, offset {offset}")
     print(f"fadein_blend: outputs, gradients and double backward agree "
-          f"(rtol 1e-5, atol 1e-6), max abs err {fade_err:.3e}")
+          f"(rtol 1e-5, atol 1e-6), max abs err {fade_err:.3e}; bit-equal at sizes around "
+          f"the {per_block}-element block, aligned and unaligned")
 
     phase("5 SNGAN main path: fused CIFAR-10 step")
     args = train_sngan.parse_args([
@@ -401,11 +469,22 @@ def main() -> None:
     del g64, d64
 
     phase("8 kernel timing at the main paths' shapes")
+    clocks = "clocks.sm,clocks.mem,power.limit"
+    print(f"nvidia-smi {clocks} before: {nvidia_smi(clocks)}", flush=True)
+    card = smi.splitlines()[0]
     ws = [m.weight.detach() for m in d.sn_layers]
     us = [m.u.detach().clone() for m in d.sn_layers]
     table = pi.PowerIterationTable()
-    kernel_ms = cuda_ms(lambda: pi.launch(ws, us, table=table), 200)
-    plain_ms = cuda_ms(lambda: pi.plain_power_iteration(ws, us), 20)
+    pi_times = timed_in_turns({
+        "kernel": lambda: pi.launch(ws, us, table=table),
+        "plain": lambda: pi.plain_power_iteration(ws, us)}, 200)
+    kernel_ms, plain_ms = pi_times["kernel"], pi_times["plain"]
+    # an empty kernel with the same grid, cluster and shared memory: the floor
+    # of the clustered launch (the first kernel's package, which A/B runs
+    # time with this script, has no such path)
+    floor = (f"{1e3 * device_ms(lambda: pi.launch_empty(table), 200):.2f} us"
+             if hasattr(pi, "launch_empty") else "not in this package")
+    pi_host = host_us(lambda: pi.launch(ws, us, table=table), 500)
     ms_, ks = [w[0].numel() for w in ws], [w.shape[0] for w in ws]
     n_bytes = 4 * (sum(m * k for m, k in zip(ms_, ks))      # W
                    + sum(ks) + len(ws) + sum(ks) + sum(ms_))  # u in; sigma, u', v out
@@ -413,8 +492,9 @@ def main() -> None:
     bound_ms = 1e3 * max(n_bytes / PEAK_BYTES_PER_S, n_flops / PEAK_FP32_FLOPS)
     bound_by = "bytes" if n_bytes / PEAK_BYTES_PER_S >= n_flops / PEAK_FP32_FLOPS else "operations"
     print(f"batched_power_iteration: kernel {1e3 * kernel_ms:.2f} us, plain "
-          f"{1e3 * plain_ms:.2f} us, bound {1e3 * bound_ms:.3f} us ({bound_by}: "
-          f"{n_bytes} B, {n_flops} flop), library_ms: none  [{smi.splitlines()[0]}]")
+          f"{1e3 * plain_ms:.2f} us, empty-kernel floor {floor}, bound "
+          f"{1e3 * bound_ms:.3f} us ({bound_by}: {n_bytes} B, {n_flops} flop), "
+          f"library_ms: none, host {pi_host:.1f} us per wrapper call  [{card}]")
 
     # fade-in: the step's two blends; the bound counts a and b read once and
     # out written once, 12 bytes per element; 3 flops per element are far
@@ -425,15 +505,17 @@ def main() -> None:
         a = torch.randn(shape, device="cuda").contiguous(memory_format=cl)
         b = torch.randn(shape, device="cuda").contiguous(memory_format=cl)
         n = a.numel()
-        k_ms = cuda_ms(lambda: fd.launch(a, b, 0.37), 50)
-        p_ms = cuda_ms(lambda: fd.plain_fadein_blend(a, b, 0.37), 50)
-        l_ms = cuda_ms(lambda: torch.lerp(b, a, 0.37), 50)
+        t = timed_in_turns({"kernel": lambda: fd.launch(a, b, 0.37),
+                            "lerp": lambda: torch.lerp(b, a, 0.37),
+                            "plain": lambda: fd.plain_fadein_blend(a, b, 0.37)}, 20)
+        k_ms, p_ms, l_ms = t["kernel"], t["plain"], t["lerp"]
+        f_host = host_us(lambda: fd.launch(a, b, 0.37), 100)
         n_bytes, n_flops = 12 * n, 3 * n
         b_ms = 1e3 * max(n_bytes / PEAK_BYTES_PER_S, n_flops / PEAK_FP32_FLOPS)
         print(f"fadein_blend {list(shape)} channels-last: kernel {1e3 * k_ms:.2f} us, plain "
               f"{1e3 * p_ms:.2f} us, torch.lerp {1e3 * l_ms:.2f} us, bound "
               f"{1e3 * b_ms:.2f} us (bytes: {n_bytes} B, {n_flops} flop), "
-              f"{n_bytes / k_ms / 1e9:.3f} TB/s  [{smi.splitlines()[0]}]")
+              f"{n_bytes / k_ms / 1e9:.3f} TB/s, host {f_host:.1f} us per wrapper call  [{card}]")
         for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms),
                        ("bound_ms", b_ms)):
             fade[key] += v / len(FADEIN_MAIN_SHAPES)
@@ -441,6 +523,7 @@ def main() -> None:
     print(f"fadein_blend: one 1024x1024 transition step launches it 6 times "
           f"(G 2 at {list(FADEIN_MAIN_SHAPES[0])}, D 4 at {list(FADEIN_MAIN_SHAPES[1])}); "
           f"the JSON line gives the mean of one launch at each shape")
+    print(f"nvidia-smi {clocks} after: {nvidia_smi(clocks)}", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "batched_power_iteration",

@@ -1,11 +1,19 @@
 """Batched spectral-norm power iteration: the wrapper of the hand-written CUDA
-kernel ``csrc/power_iteration.cu`` and its plain PyTorch version.
+kernel ``csrc/power_iteration.cu``, its host-side work plan and its plain
+PyTorch version.
 
 Port of ``gan_lib_tensorflow_tpu/ops/pallas_kernels.py:batched_power_iteration``.
 One call runs one power-iteration step for every spectral-norm weight of a
 discriminator. Weights are taken ragged in the port's layout (``[out, ...]``,
 read as the row-major ``[K=out, M=fan_in]`` matrix ``W^T``); ``u`` buffers
 hold ``K`` floats each.
+
+The kernel runs in thread-block clusters. ``plan_power_iteration`` splits
+the work from the shapes alone: a large weight gets a whole cluster, each CTA
+a slab of its columns in shared memory (or streamed from device memory when
+the slab does not fit); small weights take one CTA each, packed into shared
+clusters. ``PowerIterationTable`` writes that plan, with the pointers, into
+the device table the kernel reads.
 
 On CPU tensors the wrapper runs the plain version (a loop over
 ``ops/sn.py:power_iteration``). On CUDA tensors it launches the kernel, or
@@ -16,7 +24,7 @@ raises: there is no fallback. The kernel is built at first use by
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -27,15 +35,88 @@ from .sn import power_iteration
 # count). Callers reset it to 0 to count the launches of one run.
 launches = 0
 
+CLUSTER = 8             # CTAs per cluster, kCluster in csrc/power_iteration.cu
+WARPS = 8               # warps per CTA, kThreads / 32 in csrc/power_iteration.cu
+CHUNK = 256             # columns per chunk of the v pass, kChunk there
+SMEM_LIMIT = 232_448    # bytes of shared memory one CTA may use on sm_90 (227 KB)
+SOLO_BYTES = 64 * 1024  # a weight of at most this many bytes takes one CTA
+IDLE, SOLO, SPLIT = 0, 1, 2  # kinds of CTA, as the kernel names them
+TABLE_COLS = 11
+
 
 def _declare(lib: ctypes.CDLL) -> None:
     lib.gl_power_iteration.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.gl_power_iteration.restype = ctypes.c_int
+    lib.gl_power_iteration_empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.gl_power_iteration_empty.restype = ctypes.c_int
 
 
 library = KernelLibrary("power_iteration", _declare)
+
+
+class Cta(NamedTuple):
+    """One CTA's work: columns ``[col0, col0 + width)`` of weight ``weight``'s
+    ``W^T`` (``weight`` is -1 for an idle CTA)."""
+    weight: int
+    col0: int
+    width: int
+    kind: int
+    stream: bool     # the slab is read from device memory, not shared memory
+    smem_bytes: int  # shared memory this CTA's layout needs
+
+
+class Plan(NamedTuple):
+    ctas: List[Cta]   # len is a multiple of CLUSTER; rank = position % CLUSTER
+    smem_bytes: int   # the launch's dynamic shared memory: the largest CTA's
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def smem_bytes(k: int, width: int, nranks: int, stream: bool) -> int:
+    """Shared memory of one CTA of a weight split over ``nranks`` CTAs, as
+    ``smem_floats`` in the kernel lays it out: the partials peers push (one
+    |v|^2 per rank and K sums of W^T v per rank), the slab (absent when
+    streamed), u, the v slice, the row-group partials of the v pass and
+    block-sum scratch."""
+    peer = CLUSTER + 4 * _cdiv(nranks * k, 4)
+    return 4 * (peer + (0 if stream else k * width) + k + width
+                + WARPS * CHUNK + WARPS + 1)
+
+
+def plan_power_iteration(dims: Sequence[Tuple[int, int]]) -> Plan:
+    """Split the weights ``dims`` (``(M, K)`` = ``(fan_in, out)`` each) over
+    CTAs in clusters of ``CLUSTER``.
+
+    A weight larger than ``SOLO_BYTES`` (with at least 4 columns per rank)
+    takes a whole cluster: rank c owns ``width = ceil(M / CLUSTER)`` columns
+    rounded up to 4, so 16-byte copies stay aligned. Any other weight takes
+    one CTA; those CTAs are packed into clusters of their own, idle CTAs
+    filling the last. A slab whose CTA would need more than ``SMEM_LIMIT``
+    bytes is streamed from device memory instead (W read twice).
+    """
+    split, solo = [], []
+    for i, (m, k) in enumerate(dims):
+        if 4 * m * k > SOLO_BYTES and m >= 4 * CLUSTER:
+            width = 4 * _cdiv(_cdiv(m, CLUSTER), 4)
+            stream = smem_bytes(k, width, CLUSTER, False) > SMEM_LIMIT
+            for c in range(CLUSTER):
+                col0 = min(c * width, m)
+                wd = min(width, m - col0)
+                split.append(Cta(i, col0, wd, SPLIT, stream, smem_bytes(k, wd, CLUSTER, stream)))
+        else:
+            stream = smem_bytes(k, m, 1, False) > SMEM_LIMIT
+            solo.append(Cta(i, 0, m, SOLO, stream, smem_bytes(k, m, 1, stream)))
+    idle = Cta(-1, 0, 0, IDLE, False, 0)
+    ctas = split + solo + [idle] * (-len(solo) % CLUSTER)
+    need = max(c.smem_bytes for c in ctas)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"a CTA needs {need} bytes of shared memory even with its slab "
+                         f"streamed, more than {SMEM_LIMIT}")
+    return Plan(ctas, need)
 
 
 def _dims(weights: Sequence[torch.Tensor]) -> Tuple[List[int], List[int]]:
@@ -44,32 +125,49 @@ def _dims(weights: Sequence[torch.Tensor]) -> Tuple[List[int], List[int]]:
 
 
 class PowerIterationTable:
-    """Device table of ``(w_ptr, u_ptr, M, K, v_offset, u_offset)`` rows for a
-    fixed list of weights. Owned by one discriminator and rebuilt only when a
-    pointer or shape changes: the optimizer updates parameters in place, so
-    in training it is built once."""
+    """The plan and its device table of CTA rows ``(w_ptr, u_ptr, M, K,
+    v_offset, u_offset, col0, width, kind, weight, stream)`` for a fixed list
+    of weights. Owned by one discriminator and rebuilt, after the full input
+    checks, only when a pointer or shape changes: the optimizer updates
+    parameters in place, so in training it is built once and every later call
+    costs one comparison of pointers and shapes."""
 
     def __init__(self):
-        self._key = None
+        self._ptrs: Optional[List[int]] = None
+        self._shapes: Optional[List[torch.Size]] = None
         self.table: Optional[torch.Tensor] = None
+        self.plan: Optional[Plan] = None
         self.ms: List[int] = []
         self.ks: List[int] = []
+        self.out_sizes: List[int] = []  # sigma, u', v in one output buffer
 
     def get(self, weights: Sequence[torch.Tensor],
             us: Sequence[torch.Tensor]) -> "PowerIterationTable":
-        key = (tuple(w.data_ptr() for w in weights),
-               tuple(u.data_ptr() for u in us),
-               tuple(tuple(w.shape) for w in weights))
-        if key != self._key:
-            self.ms, self.ks = _dims(weights)
-            rows, v_off, u_off = [], 0, 0
-            for w, u, m, k in zip(weights, us, self.ms, self.ks):
-                rows.append([w.data_ptr(), u.data_ptr(), m, k, v_off, u_off])
-                v_off += m
-                u_off += k
-            self.table = torch.tensor(rows, dtype=torch.int64).to(weights[0].device)
-            self._key = key
+        ptrs = list(map(torch.Tensor.data_ptr, (*weights, *us)))
+        shapes = [w.shape for w in weights]
+        if ptrs != self._ptrs or shapes != self._shapes:
+            _check(weights, us)
+            self._build(weights, us)
+            self._ptrs, self._shapes = ptrs, shapes
         return self
+
+    def _build(self, weights, us) -> None:
+        self.ms, self.ks = _dims(weights)
+        self.plan = plan_power_iteration(list(zip(self.ms, self.ks)))
+        v_offs, u_offs = [0], [0]
+        for m, k in zip(self.ms, self.ks):
+            v_offs.append(v_offs[-1] + m)
+            u_offs.append(u_offs[-1] + k)
+        rows = []
+        for c in self.plan.ctas:
+            if c.kind == IDLE:
+                rows.append([0] * TABLE_COLS)
+                continue
+            i = c.weight
+            rows.append([weights[i].data_ptr(), us[i].data_ptr(), self.ms[i], self.ks[i],
+                         v_offs[i], u_offs[i], c.col0, c.width, c.kind, i, int(c.stream)])
+        self.table = torch.tensor(rows, dtype=torch.int64).to(weights[0].device)
+        self.out_sizes = [len(weights), u_offs[-1], v_offs[-1]]
 
 
 def _check(weights: Sequence[torch.Tensor], us: Sequence[torch.Tensor]) -> None:
@@ -97,24 +195,32 @@ def launch(weights: Sequence[torch.Tensor], us: Sequence[torch.Tensor],
     """Launch the CUDA kernel once. Returns ``(sigma [N], u_new flat [sum K],
     v flat [sum M])``; when ``write_u`` the kernel also writes u' into ``us``."""
     global launches
-    _check(weights, us)
+    t = (table if table is not None else PowerIterationTable()).get(weights, us)
     dev = weights[0].device
     if dev.type != "cuda":
-        raise ValueError(f"the power-iteration kernel runs on CUDA tensors, "
-                         f"got {dev}")
-    t = (table or PowerIterationTable()).get(weights, us)
-    sigma = torch.empty(len(weights), device=dev, dtype=torch.float32)
-    u_out = torch.empty(sum(t.ks), device=dev, dtype=torch.float32)
-    v_out = torch.empty(sum(t.ms), device=dev, dtype=torch.float32)
+        raise ValueError(f"the power-iteration kernel runs on CUDA tensors, got {dev}")
+    out = torch.empty(sum(t.out_sizes), device=dev, dtype=torch.float32)
+    sigma, u_out, v_out = out.split_with_sizes(t.out_sizes)
     lib = library.load()
+    plan = t.plan
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.gl_power_iteration(
-            t.table.data_ptr(), len(weights), sigma.data_ptr(),
+            t.table.data_ptr(), len(plan.ctas), plan.smem_bytes, sigma.data_ptr(),
             u_out.data_ptr(), v_out.data_ptr(), int(write_u), stream)
     library.check(err, "power-iteration kernel")
     launches += 1
     return sigma, u_out, v_out
+
+
+def launch_empty(table: PowerIterationTable) -> None:
+    """Launch an empty kernel with ``table``'s grid, cluster and shared
+    memory on the current device and stream: what launching alone costs.
+    Not counted in ``launches``."""
+    plan = table.plan
+    err = library.load().gl_power_iteration_empty(
+        len(plan.ctas), plan.smem_bytes, torch.cuda.current_stream().cuda_stream)
+    library.check(err, "empty clustered kernel")
 
 
 class _KernelSigma(torch.autograd.Function):

@@ -26,6 +26,11 @@ torch.backends.cudnn.allow_tf32 = False
 CIFAR_D_SHAPES = ([(27, 128), (1152, 128), (3, 128), (1152, 128), (1152, 128),
                    (128, 128)] + [(1152, 128)] * 4 + [(128, 1)])
 PALLAS_SHAPES = [(1152, 128), (27, 64), (128, 1), (9, 256)]
+# the SNGAN-projection ImageNet-128 D's widest 3x3 convs: slabs streamed
+IMAGENET_WIDE_SHAPES = [(4608, 1024), (9216, 1024)]
+# ragged splits: M not a multiple of 4 (4-byte copies), a last rank narrower
+# than the others, K larger than a CTA's threads
+RAGGED_SHAPES = [(1153, 130), (64, 3000), (2000, 40)]
 
 
 @pytest.fixture
@@ -42,8 +47,10 @@ def _inputs(shapes, dev, seed=0):
     return ws, us
 
 
-@pytest.mark.parametrize("shapes", [CIFAR_D_SHAPES, PALLAS_SHAPES],
-                         ids=["cifar_d_shapes", "pallas_shapes"])
+@pytest.mark.parametrize("shapes", [CIFAR_D_SHAPES, PALLAS_SHAPES, IMAGENET_WIDE_SHAPES,
+                                    RAGGED_SHAPES],
+                         ids=["cifar_d_shapes", "pallas_shapes", "imagenet_wide_shapes",
+                              "ragged_shapes"])
 def test_kernel_matches_plain(card, shapes):
     ws, us = _inputs(shapes, card)
     before = pi.launches
@@ -53,6 +60,30 @@ def test_kernel_matches_plain(card, shapes):
     torch.testing.assert_close(sigma, s_ref, rtol=1e-4, atol=0.0)
     torch.testing.assert_close(u_out, torch.cat(u_ref), rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(v_out, torch.cat(v_ref), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("shapes", [CIFAR_D_SHAPES, IMAGENET_WIDE_SHAPES],
+                         ids=["cifar_d_shapes", "imagenet_wide_shapes"])
+def test_two_launches_are_bit_identical(card, shapes):
+    """No atomics and a fixed order of every sum: the same inputs give the
+    same sigma, u' and v, bit for bit."""
+    ws, us = _inputs(shapes, card, seed=2)
+    table = pi.PowerIterationTable()
+    first = pi.launch(ws, us, table=table)
+    second = pi.launch(ws, us, table=table)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_refused_launch_raises(card):
+    """A launch the card refuses (here more shared memory than a CTA may
+    have) comes back from the C function as an error and the wrapper raises."""
+    ws, us = _inputs(CIFAR_D_SHAPES, card)
+    table = pi.PowerIterationTable().get(ws, us)
+    table.plan = table.plan._replace(smem_bytes=400_000)
+    before = pi.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pi.launch(ws, us, table=table)
+    assert pi.launches == before
 
 
 def test_gradient_and_update_through_the_wrapper(card):
@@ -115,6 +146,19 @@ def test_fadein_ragged_and_unaligned(card, n, offset):
     b = torch.randn(n + offset, device=card)[offset:]
     torch.testing.assert_close(fd.fadein_blend(a, b, 0.37),
                                fd.plain_fadein_blend(a, b, 0.37), rtol=1e-5, atol=1e-6)
+
+
+BLOCK = 1024 * 4  # elements one block of csrc/fadein_blend.cu covers
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", [BLOCK - 1, BLOCK + 1, 3 * BLOCK - 1, 3 * BLOCK + 1])
+def test_fadein_bit_equal_around_block_boundaries(card, n, offset):
+    """Either side of a whole number of blocks, aligned and off a 16-byte
+    boundary: equal to the plain version bit for bit."""
+    a = torch.randn(n + offset, device=card)[offset:]
+    b = torch.randn(n + offset, device=card)[offset:]
+    assert torch.equal(fd.fadein_blend(a, b, 0.37), fd.plain_fadein_blend(a, b, 0.37))
 
 
 def test_fadein_rejects_mismatched_strides(card):
