@@ -42,6 +42,20 @@ final line):
      where there is one, the bound of the work on this card, the host time
      of one wrapper call, the power iteration's empty-kernel floor, and
      nvidia-smi's clocks before and after
+  9. checkpoint, resume, sample, eval on the card (cuDNN deterministic, in
+     a temporary directory): (a) the full-width SNGAN step through
+     ``train_sngan.main`` with a checkpoint every 4 steps and a fault at step
+     6, re-run to resume from step 4 to 12, and every tensor of that run
+     bit-equal to an uninterrupted 12-step run, the power-iteration kernel
+     launched 6 times per step in each run; checkpoint bytes, save and
+     restore ms; (b) ``cli.sample`` writes the 64-image grid; (c)
+     ``cli.evaluate`` with the random-init InceptionV3 at 5000 samples and
+     5000 reals, then again from the cached real moments, to the last digit;
+     samples/s of the eval passes; InceptionV3 on the card against the CPU;
+     (d) the PGGAN ladder to 64x64 at full width with per-phase checkpoints,
+     interrupted in the 64x64 transition and re-run to its end, the fade-in
+     kernel launched 6 times per transition step (and once per sample grid
+     of a transition phase)
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -54,9 +68,12 @@ import copy
 import json
 import math
 import os
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s
@@ -247,6 +264,243 @@ def snapshot(st):
         ("ema", n): t.clone() for n, t in st.ema_params.items()}
 
 
+def flat_items(obj, path=()):
+    """(path, leaf) of every leaf of nested dicts, lists and tuples."""
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            yield from flat_items(v, path + (k,))
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            yield from flat_items(v, path + (i,))
+    else:
+        yield path, obj
+
+
+def timed_calls(module, name: str, sink: list) -> None:
+    """Wrap ``module.name`` so each call appends its synchronised seconds to
+    ``sink`` (the eval passes inside ``cli.evaluate``)."""
+    import torch
+    inner = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        sink.append(time.perf_counter() - t0)
+        return out
+
+    setattr(module, name, wrapped)
+
+
+def checkpoint_resume_eval(card: str, tmp: str) -> None:
+    """Phase 9, in the temporary directory ``tmp``."""
+    import contextlib
+    import io
+
+    import torch
+    from gan_lib_tensorflow_tpu_torch.cli import evaluate, sample, train_pggan, train_sngan
+    from gan_lib_tensorflow_tpu_torch.data import DeviceFakeImages
+    from gan_lib_tensorflow_tpu_torch.eval import metrics
+    from gan_lib_tensorflow_tpu_torch.eval.inception_v3 import InceptionV3Features
+    from gan_lib_tensorflow_tpu_torch.ops import fadein as fd
+    from gan_lib_tensorflow_tpu_torch.ops import power_iteration as pi
+    from gan_lib_tensorflow_tpu_torch.train import CheckpointManager, to_checkpoint
+    from gan_lib_tensorflow_tpu_torch.train.pggan_loop import train_pggan_ladder
+
+    # (a) SNGAN: fault at step 6, resume from the step-4 checkpoint to 12
+    run, straight_dir = os.path.join(tmp, "sngan"), os.path.join(tmp, "sngan_straight")
+    sn_args = ["--data", "fake", "--device", "cuda", "--batch-size", str(BATCH),
+               "--n-critic", str(N_CRITIC), "--ema-decay", "0.9999", "--compute-dtype",
+               "bf16", "--steps", "12", "--ckpt-every", "4", "--sample-every", "6",
+               "--log-every", "4"]
+    launches = []
+    pi.launches = 0
+    try:
+        train_sngan.main(sn_args + ["--out-dir", run, "--fault-inject-step", "6"])
+        check(False, "the injected fault did not raise")
+    except RuntimeError as e:
+        check("fault injected at step 6" in str(e), f"unexpected error: {e}")
+    launches.append(pi.launches)
+    check(CheckpointManager(os.path.join(run, "ckpt")).latest_step() == 4,
+          "the step-4 checkpoint is not the latest after the fault")
+    for out_dir in (run, straight_dir):
+        pi.launches = 0
+        state = train_sngan.main(sn_args + ["--out-dir", out_dir])
+        torch.cuda.synchronize()
+        launches.append(pi.launches)
+        if out_dir == run:
+            resumed = state
+    straight = state
+    check(resumed.step == straight.step == 12, "a run did not end at step 12")
+    check(launches == [6 * 6, 6 * 8, 6 * 12],
+          f"power-iteration launches {launches} in 6, 8 and 12 steps, want 6 per step")
+    got = dict(flat_items(to_checkpoint(resumed)))
+    want = dict(flat_items(to_checkpoint(straight)))
+    check(got.keys() == want.keys(), "the resumed and uninterrupted states differ in keys")
+    differ = [k for k in want if not (torch.equal(got[k], want[k])
+                                      if isinstance(want[k], torch.Tensor)
+                                      else got[k] == want[k])]
+    check(not differ, f"{len(differ)} of {len(want)} leaves differ after the resume, "
+                      f"e.g. {differ[:5]}")
+    n_tensors = sum(isinstance(v, torch.Tensor) for v in want.values())
+    print(f"SNGAN resume: fault at step 6, resumed from step 4 to 12; all {len(want)} "
+          f"leaves ({n_tensors} tensors: G, D, EMA, Adam slots, lr schedules, noise "
+          f"generators) bit-equal to the uninterrupted run; power-iteration launches "
+          f"{launches[0]}, {launches[1]}, {launches[2]} in 6, 8, 12 steps (6 per step)")
+
+    ckpt = CheckpointManager(os.path.join(run, "ckpt"))
+    n_bytes = os.path.getsize(ckpt.path(12))
+    bench = CheckpointManager(os.path.join(tmp, "bench"), max_to_keep=1)
+    save_ms, restore_ms = [], []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bench.save(i, straight, wait=True)
+        save_ms.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        bench.restore_latest(straight)
+        torch.cuda.synchronize()
+        restore_ms.append(1e3 * (time.perf_counter() - t0))
+    bench.close()
+    print(f"checkpoint: {n_bytes} bytes on disk ({n_bytes / 1e6:.2f} MB); save (host "
+          f"copy + write, waited) {', '.join(f'{t:.1f}' for t in save_ms)} ms; restore "
+          f"(read + copy to the card) {', '.join(f'{t:.1f}' for t in restore_ms)} ms  [{card}]")
+
+    # (b) the sample grid of that checkpoint
+    png = os.path.join(tmp, "samples.png")
+    sample.main(["--model", "sngan", "--ckpt-dir", os.path.join(run, "ckpt"),
+                 "--out", png, "--n", "64", "--device", "cuda"])
+    with open(png, "rb") as f:
+        head = f.read(24)
+    width, height = struct.unpack(">II", head[16:24])
+    check(head[:8] == b"\x89PNG\r\n\x1a\n" and head[12:16] == b"IHDR"
+          and (width, height) == (8 * 32, 8 * 32),
+          f"sample grid header {head!r}, want a 256x256 PNG (8x8 tiles of 32x32)")
+    print(f"cli.sample: {png} is a {width}x{height} PNG (8x8 tiles of 32x32), "
+          f"{os.path.getsize(png)} bytes")
+
+    # (c) IS/FID through the full random-init InceptionV3, then from the cache
+    passes, reals, fids = [], [], []
+    timed_calls(evaluate, "evaluate_generator", passes)
+    timed_calls(evaluate, "compute_statistics", reals)
+    timed_calls(metrics, "frechet_distance", fids)  # host sqrtm, inside each pass
+    ev_args = ["--model", "sngan", "--ckpt-dir", os.path.join(run, "ckpt"),
+               "--n-samples", "5000", "--n-real", "5000", "--data", "fake",
+               "--real-stats-npz", os.path.join(tmp, "real_stats.npz"), "--device", "cuda"]
+    results, logs = [], []
+    for _ in range(2):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            results.append(evaluate.main(ev_args))
+        logs.append(buf.getvalue())
+        print(buf.getvalue(), end="")
+    first, second = results
+    check(all(math.isfinite(first[k]) for k in ("inception_score", "fid"))
+          and first["step"] == 12 and first["samples_evaluated"] == 5000,
+          f"eval result {first}")
+    check("cached real moments to" in logs[0] and "loaded cached real moments" in logs[1]
+          and len(reals) == 1, "the second eval did not load the cached real moments")
+    check(first == second, f"the cached-moment eval differs: {first} vs {second}")
+    # the device passes without the host FID (scipy sqrtm of a 2048x2048 product)
+    device_s = [p - f for p, f in zip(passes, fids)]
+    print(f"eval: IS {first['inception_score']!r} +- {first['inception_score_std']!r}, "
+          f"FID {first['fid']!r}, step {first['step']}; the second call (cached real "
+          f"moments) agrees in every digit. Real pass 5000 images {reals[0]:.2f} s "
+          f"({5000 / reals[0]:.1f} images/s); generate + features + sums of 5000 "
+          f"samples {device_s[0]:.2f} s and {device_s[1]:.2f} s ({5000 / device_s[0]:.1f} "
+          f"and {5000 / device_s[1]:.1f} samples/s); FID on the host (scipy sqrtm) "
+          f"{fids[0]:.2f} s and {fids[1]:.2f} s; whole calls {passes[0]:.2f} s and "
+          f"{passes[1]:.2f} s; float32, TF32 off  [{card}]")
+
+    nets = [InceptionV3Features(seed=0, device=d) for d in ("cuda", "cpu")]
+    x = next(iter(DeviceFakeImages(batch_size=4, device="cpu")))["image"][0]
+    (f_gpu, l_gpu), (f_cpu, l_cpu) = nets[0](x.cuda()), nets[1](x)
+    torch.testing.assert_close(f_gpu.cpu(), f_cpu, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(l_gpu.cpu(), l_cpu, rtol=1e-3, atol=1e-3)
+    inc_err = max(float((f_gpu.cpu() - f_cpu).abs().max()),
+                  float((l_gpu.cpu() - l_cpu).abs().max()))
+    print(f"InceptionV3 (random init, batch statistics) features and logits of 4 "
+          f"images at 32x32 on the card agree with the CPU, float32 with TF32 off "
+          f"(rtol 1e-3, atol 1e-3): max abs err {inc_err:.3e}  [{card}]")
+    del nets
+
+    # (d) PGGAN to 64x64: interrupted one batch into the 64x64 transition, re-run
+    class Interrupted(Exception):
+        pass
+
+    class RaiseAfterOne:
+        yields_stacks = True
+
+        def __init__(self, inner):
+            self.inner = inner
+
+        def set_stream_position(self, pos):
+            self.inner.set_stream_position(pos)
+
+        def __iter__(self):
+            it = iter(self.inner)
+            yield next(it)
+            raise Interrupted()
+
+    pg_args = train_pggan.parse_args([
+        "--data", "fake", "--device", "cuda", "--final-resolution", "64",
+        "--steps-per-phase", str(PGGAN_STEPS_PER_PHASE), "--log-every", "1",
+        "--compute-dtype", "bf16", "--out-dir", os.path.join(tmp, "pggan"),
+        "--ckpt-every", "1", "--sample-every", str(PGGAN_STEPS_PER_PHASE)])
+    cfg = train_pggan.ladder_config(pg_args)
+    make_source = train_pggan.source_factory(pg_args)
+    counts, current = [], []
+
+    def hook(when, res, name, st):
+        if when == "start":
+            current[:] = [(res, name)]
+            counts.append([res, name, fd.launches, pi.launches])
+        else:
+            torch.cuda.synchronize()
+            counts[-1][2:] = [fd.launches - counts[-1][2], pi.launches - counts[-1][3], st.step]
+
+    def interrupting(res, batch):
+        src = make_source(res, batch)
+        return RaiseAfterOne(src) if current[0] == (64, "transition") else src
+
+    t0 = time.perf_counter()
+    fd.launches = pi.launches = 0  # count this path's launches only
+    try:
+        train_pggan_ladder(cfg, interrupting, phase_hook=hook, log_fn=lambda it, m: None)
+        check(False, "the interrupting source did not raise")
+    except Interrupted:
+        counts[-1][2:] = [fd.launches - counts[-1][2], pi.launches - counts[-1][3]]
+    totals = [(fd.launches, pi.launches)]
+    first_run, counts = counts, []
+    fd.launches = pi.launches = 0
+    resumed_pg = train_pggan_ladder(cfg, make_source, phase_hook=hook,
+                                    log_fn=lambda it, m: None)
+    torch.cuda.synchronize()
+    totals.append((fd.launches, pi.launches))
+    pg_s = time.perf_counter() - t0
+    check(len(first_run) == 8 and len(counts) == 9, f"{len(first_run)} and {len(counts)} "
+          "phases in the interrupted run and the re-run, want 8 and 9")
+    check(resumed_pg.step == PGGAN_STEPS_PER_PHASE and resumed_pg.alpha == 1.0,
+          "the re-run ladder did not end in the 64x64 stabilize phase")
+    # a transition phase trained to its end launches 6 per step + 1 for its grid
+    full = 6 * PGGAN_STEPS_PER_PHASE + 1
+    want_first = [full if n == "transition" else 0 for _, n, *_ in first_run[:-1]] + [6]
+    want_again = [0] * 7 + [6 * (PGGAN_STEPS_PER_PHASE - 1) + 1, 0]
+    got_first = [rec[2] for rec in first_run]
+    got_again = [rec[2] for rec in counts]
+    check(got_first == want_first and got_again == want_again,
+          f"fade-in launches per phase {got_first} then {got_again}, want "
+          f"{want_first} then {want_again}")
+    check(totals == [(sum(got_first), 0), (sum(got_again), 0)],
+          f"PGGAN ladder runs launched (fade-in, power iteration) {totals}, want "
+          f"{[(sum(got_first), 0), (sum(got_again), 0)]}")
+    print(f"PGGAN ladder 4x4 -> 64x64 at full width, per-phase checkpoints: interrupted "
+          f"after 1 step of the 64x64 transition (fade-in launches per phase "
+          f"{got_first}), re-run resumed every phase (launches {got_again}: 6 per "
+          f"transition step, 1 per transition sample grid), {pg_s:.1f} s for both runs")
+
+
 def main() -> None:
     import torch
 
@@ -373,6 +627,7 @@ def main() -> None:
         "--steps-per-phase", str(PGGAN_STEPS_PER_PHASE), "--log-every", "1",
         "--compute-dtype", "bf16"])
     cfg = train_pggan.ladder_config(pg_args)
+    cfg.out_dir = None  # no checkpoints or sample grids here: phase 9 drives those
     per_phase, pg_logs, carried = [], [], {}
     last = {}
 
@@ -524,6 +779,17 @@ def main() -> None:
           f"(G 2 at {list(FADEIN_MAIN_SHAPES[0])}, D 4 at {list(FADEIN_MAIN_SHAPES[1])}); "
           f"the JSON line gives the mean of one launch at each shape")
     print(f"nvidia-smi {clocks} after: {nvidia_smi(clocks)}", flush=True)
+
+    phase("9 checkpoint, resume, sample, eval on the card")
+    t9 = time.perf_counter()
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        checkpoint_resume_eval(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.backends.cudnn.deterministic = False
+    print(f"phase 9: {time.perf_counter() - t9:.1f} s  [{card}]")
 
     print(json.dumps({"kernels": [{
         "name": "batched_power_iteration",

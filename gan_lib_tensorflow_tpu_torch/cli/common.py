@@ -1,5 +1,6 @@
 """Shared CLI plumbing (port of the parts of
-``gan_lib_tensorflow_tpu/cli/common.py`` that the SNGAN CIFAR path uses)."""
+``gan_lib_tensorflow_tpu/cli/common.py`` that the SNGAN CIFAR and PGGAN paths
+use)."""
 
 from __future__ import annotations
 
@@ -20,7 +21,14 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--data", default="fake", choices=["fake"],
                    help="data backend: 'fake' renders synthetic blob images "
                         "on the device (the only source ported so far)")
+    p.add_argument("--out-dir", default="runs/out",
+                   help="checkpoints, sample grids and log.jsonl go here; a "
+                        "re-run with the same directory resumes")
     p.add_argument("--log-every", type=int, default=100)
+    p.add_argument("--sample-every", type=int, default=1000)
+    p.add_argument("--ckpt-every", type=int, default=5000)
+    p.add_argument("--fault-inject-step", type=int, default=0,
+                   help="raise after this step (resume testing; 0 = never)")
     p.add_argument("--compute-dtype", default="bf16", choices=["fp32", "bf16"])
     p.add_argument("--device", default="cuda",
                    help="torch device; without CUDA only 'cpu' runs")

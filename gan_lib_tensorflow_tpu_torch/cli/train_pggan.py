@@ -3,7 +3,10 @@ of ``gan_lib_tensorflow_tpu/cli/train_pggan.py``; WGAN-GP + drift,
 Adam(1e-3, 0, 0.99), G EMA 0.999, a transition (fade-in) and a stabilize
 phase per level, fused_scale D blocks from 128x128).
 
-Usage: python -m gan_lib_tensorflow_tpu_torch.cli.train_pggan --data fake --steps-per-phase 2
+Usage: python -m gan_lib_tensorflow_tpu_torch.cli.train_pggan --data fake --steps-per-phase 2 \
+           --out-dir runs/pggan
+(one directory per phase under --out-dir: checkpoints, sample grids, log.jsonl;
+a re-run with the same --out-dir resumes every phase)
 """
 
 from __future__ import annotations
@@ -52,7 +55,9 @@ def ladder_config(args) -> LadderConfig:
         images_per_phase=args.images_per_phase, lr=args.lr,
         width_mul=args.width_mul, z_dim=args.z_dim,
         compute_dtype=common.compute_dtype(args), seed=args.seed,
-        log_every=args.log_every, steps_per_phase=args.steps_per_phase or None,
+        out_dir=args.out_dir, log_every=args.log_every,
+        sample_every=args.sample_every, checkpoint_every=args.ckpt_every,
+        steps_per_phase=args.steps_per_phase or None,
         fused_from_resolution=args.fused_from, device=args.device)
     cfg.batch_by_res.update(parse_batch_by_res(args.batch_by_res))
     return cfg

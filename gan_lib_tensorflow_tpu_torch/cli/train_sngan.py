@@ -1,17 +1,28 @@
 """SNGAN CIFAR-10 training entry point (port of
 ``gan_lib_tensorflow_tpu/cli/train_sngan.py``): hinge, Adam(2e-4, 0, 0.9),
-n_critic 5, batch 64, linear lr decay, EMA of G.
+n_critic 5, batch 64, linear lr decay, EMA of G; checkpoints and auto-resume
+under ``--out-dir``, sample grids, periodic IS/FID.
 
-Usage: python -m gan_lib_tensorflow_tpu_torch.cli.train_sngan --data fake --steps 20
+Usage: python -m gan_lib_tensorflow_tpu_torch.cli.train_sngan --data fake --steps 20 \
+           --out-dir runs/sngan [--ckpt-every 5000] [--eval-every 10000]
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
+import torch
+
+from ..eval import compute_statistics, evaluate_generator
+from ..eval.inception_v3 import InceptionV3Features
 from ..models import sngan
-from ..train import LoopConfig, create_state, make_train_step, train_loop
+from ..train import (CheckpointManager, LoopConfig, create_state,
+                     make_train_step, train_loop)
+from ..utils import save_image_grid
 from . import common
+
+EVAL_BATCH = 100  # the reference's eval batch
 
 
 def parse_args(argv=None):
@@ -23,6 +34,13 @@ def parse_args(argv=None):
                    help="EMA of G params for sampling (0 disables)")
     p.add_argument("--lr-decay-steps", type=int, default=0,
                    help="linear-decay horizon (0 = --steps)")
+    p.add_argument("--eval-every", type=int, default=0,
+                   help="IS/FID every N steps (0 = never); without "
+                        "--inception-weights the extractor is the seed-fixed "
+                        "random-init InceptionV3 (relative trends only)")
+    p.add_argument("--eval-samples", type=int, default=5000)
+    p.add_argument("--inception-weights", default=None,
+                   help="npz of InceptionV3 weights in the JAX package's layout")
     return p.parse_args(argv)
 
 
@@ -49,13 +67,54 @@ def build(args):
     return g, d, spec, state
 
 
+def make_eval_fn(args, sampler, z_dim: int, device: torch.device):
+    """``eval_fn(state, it)`` -> IS/FID of ``--eval-samples`` EMA samples.
+    The real moments are computed once, here, from the training data's kind
+    of source at batch 100."""
+    net = InceptionV3Features(params_npz=args.inception_weights, device=args.device)
+    real = iter(common.image_source(args, EVAL_BATCH, 32, 10))
+    n_real = max(args.eval_samples // EVAL_BATCH, 1)
+    real_stats = compute_statistics(
+        net, (next(real)["image"][0] for _ in range(n_real)), net.feature_dim)
+
+    def eval_fn(state, it: int) -> dict:
+        def sample_batch(gen: torch.Generator) -> torch.Tensor:
+            return sampler(state, torch.randn(EVAL_BATCH, z_dim, generator=gen).to(device))
+
+        return evaluate_generator(
+            sample_batch, net, net.feature_dim, n_samples=args.eval_samples,
+            batch_size=EVAL_BATCH, generator=torch.Generator().manual_seed(args.seed + it),
+            real_stats=real_stats)
+
+    return eval_fn
+
+
 def main(argv=None):
     args = parse_args(argv)
     g, d, spec, state = build(args)
+    device = next(g.parameters()).device
     source = common.image_source(args, args.batch_size, 32, 10,
                                  n_micro=spec.n_critic)
-    cfg = LoopConfig(total_steps=args.steps, log_every=args.log_every)
-    return train_loop(state, make_train_step(spec), source, cfg)
+    sampler = sngan.make_sampler(g)
+    z_grid = torch.randn(64, g.z_dim, generator=torch.Generator().manual_seed(args.seed + 1))
+    z_grid = z_grid.to(device)
+
+    def sample_fn(st, it: int) -> None:
+        save_image_grid(sampler(st, z_grid).cpu().numpy(),
+                        os.path.join(args.out_dir, "samples", f"sample_{it:06d}.png"))
+
+    eval_fn = make_eval_fn(args, sampler, g.z_dim, device) if args.eval_every else None
+    cfg = LoopConfig(total_steps=args.steps, log_every=args.log_every,
+                     sample_every=args.sample_every,
+                     checkpoint_every=args.ckpt_every,
+                     eval_every=args.eval_every, out_dir=args.out_dir,
+                     fault_inject_step=args.fault_inject_step)
+    ckpt = CheckpointManager(os.path.join(args.out_dir, "ckpt"))
+    try:
+        return train_loop(state, make_train_step(spec), source, cfg,
+                          sample_fn=sample_fn, ckpt=ckpt, eval_fn=eval_fn)
+    finally:
+        ckpt.close()
 
 
 if __name__ == "__main__":

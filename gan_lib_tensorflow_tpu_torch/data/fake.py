@@ -5,9 +5,17 @@ Each batch is rendered on the device from a ``torch.Generator``: one
 class-pinned gaussian blob (plus a jittered copy) per image, low noise,
 clipped to [-1, 1]. The class table is the reference's, so class k looks the
 same in both packages; the random streams differ (distribution twins).
+
+The stream is counter-based, as the reference's is (``fold_in(key, k)``):
+batch k depends only on ``(seed, k)``, because the generator is re-seeded
+from both before each render (on the host, no device sync). The position
+lives on the instance, and ``set_stream_position`` sets it, so a resumed run
+sees the batches an uninterrupted run sees.
 """
 
 from __future__ import annotations
+
+import hashlib
 
 import numpy as np
 import torch
@@ -47,10 +55,22 @@ class DeviceFakeImages:
         grid = torch.arange(s, dtype=torch.float32, device=dev) / max(s - 1, 1)
         self._yy, self._xx = grid[:, None], grid[None, :]
         self._s = s
-        self._gen = torch.Generator(device=dev).manual_seed(seed)
+        self._gen = torch.Generator(device=dev)
+        self._seed, self._pos = seed, 0
         self.device = dev
 
+    def set_stream_position(self, pos: int) -> None:
+        """Make the next batch batch ``pos`` of the stream (the train loop
+        primes this with the resumed step)."""
+        self._pos = int(pos)
+
     def render(self):
+        """Batch ``self._pos`` of the stream; advances the position."""
+        # the CPU generator keys on the low 32 bits of its seed, so mix
+        # (seed, position) into all 64
+        key = hashlib.blake2b(f"{self._seed}:{self._pos}".encode(), digest_size=8)
+        self._gen.manual_seed(int.from_bytes(key.digest(), "little") >> 1)
+        self._pos += 1
         shape = (self.n_micro, self.batch_size)
         g, dev = self._gen, self.device
         lab = torch.randint(0, self.num_classes, shape, generator=g,

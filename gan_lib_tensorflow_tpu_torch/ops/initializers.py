@@ -29,6 +29,16 @@ def he_normal_(w: torch.Tensor, fan_in: int,
 
 
 @torch.no_grad()
+def lecun_normal_(w: torch.Tensor, fan_in: int,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax's default kernel init, ``variance_scaling(1.0, "fan_in",
+    "truncated_normal")``."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    return torch.nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                       generator=generator)
+
+
+@torch.no_grad()
 def unit_normal_(w: torch.Tensor,
                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
     return w.normal_(0.0, 1.0, generator=generator)

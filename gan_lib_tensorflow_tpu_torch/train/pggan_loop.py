@@ -1,22 +1,29 @@
 """PGGAN progressive-growing ladder (port of ``gan_lib_tensorflow_tpu/train/
-pggan_loop.py:32-178``, without its checkpoints, sampling and spatial
-sharding).
+pggan_loop.py:32-178``, without its spatial sharding, remat and s2d).
 
 For each level from ``start_resolution`` to ``final_resolution``: a
 transition phase (alpha rises linearly to 1 over the phase) and then a
 stabilize phase; the first level has only the stabilize phase. Every phase
 builds fresh networks and fresh Adam states (``build_phase``); G, D and the
 EMA take every tensor they share by name and shape with the phase before.
+
+With ``out_dir`` set, each phase gets its own directory ``<res>x<res>_<phase>/``
+with a checkpoint manager (``ckpt/``), grids of 16 samples from a fixed z and
+``log.jsonl``; a re-run with the same ``out_dir`` resumes every phase from its
+newest checkpoint (a finished phase restores its last step and trains none).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Dict, Iterable, Iterator, Optional
 
 import torch
 
 from ..models import pggan
+from ..utils import save_image_grid
+from .checkpoint import CheckpointManager
 from .loop import LoopConfig, train_loop
 from .state import GANTrainState, create_state
 from .step import GANSpec, make_train_step
@@ -41,7 +48,10 @@ class LadderConfig:
     ema_decay: float = 0.999
     compute_dtype: Optional[torch.dtype] = None
     seed: int = 0
+    out_dir: Optional[str] = None
     log_every: int = 100
+    sample_every: int = 1000
+    checkpoint_every: int = 5000
     # fixed step count per phase for short runs (None: images_per_phase / batch)
     steps_per_phase: Optional[int] = None
     # the fused_scale D blocks from this resolution upward (0 = never)
@@ -119,10 +129,39 @@ def train_pggan_ladder(
             ph = build_phase(cfg, res, phase, prev)
             if phase_hook is not None:
                 phase_hook("start", res, phase, ph.state)
-            loop_cfg = LoopConfig(total_steps=ph.steps, log_every=cfg.log_every)
-            prev = train_loop(ph.state, make_train_step(ph.spec),
-                              source_factory(res, ph.batch), loop_cfg, log_fn,
-                              alpha_fn=ph.alpha_fn)
+            phase_dir = (os.path.join(cfg.out_dir, f"{res}x{res}_{phase}")
+                         if cfg.out_dir else None)
+            loop_cfg = LoopConfig(total_steps=ph.steps, log_every=cfg.log_every,
+                                  sample_every=cfg.sample_every,
+                                  checkpoint_every=cfg.checkpoint_every,
+                                  out_dir=phase_dir)
+            ckpt = (CheckpointManager(os.path.join(phase_dir, "ckpt"))
+                    if phase_dir else None)
+            try:
+                prev = train_loop(ph.state, make_train_step(ph.spec),
+                                  source_factory(res, ph.batch), loop_cfg, log_fn,
+                                  alpha_fn=ph.alpha_fn,
+                                  sample_fn=_phase_sampler(cfg, ph, phase_dir),
+                                  ckpt=ckpt)
+            finally:
+                if ckpt is not None:
+                    ckpt.close()
             if phase_hook is not None:
                 phase_hook("end", res, phase, prev)
     return prev
+
+
+def _phase_sampler(cfg: LadderConfig, ph: Phase, phase_dir: Optional[str]):
+    """Writes ``sample_{it:06d}.png`` in ``phase_dir``: 16 samples of the
+    EMA generator from a fixed z (seed + 99), None without a directory."""
+    if phase_dir is None:
+        return None
+    sampler = pggan.make_sampler(ph.state.g)
+    z = torch.randn(16, cfg.z_dim, generator=torch.Generator().manual_seed(cfg.seed + 99))
+    z = z.to(next(ph.state.g.parameters()).device)
+
+    def sample_fn(state: GANTrainState, it: int) -> None:
+        imgs = sampler(state, z)
+        save_image_grid(imgs.cpu().numpy(), os.path.join(phase_dir, f"sample_{it:06d}.png"))
+
+    return sample_fn

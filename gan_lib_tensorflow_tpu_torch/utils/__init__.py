@@ -1,0 +1,4 @@
+from .images import save_image_grid, to_uint8
+from .logging import ScalarLogger
+
+__all__ = ["ScalarLogger", "save_image_grid", "to_uint8"]

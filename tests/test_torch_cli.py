@@ -23,13 +23,13 @@ CPU_ARGS = ["--device", "cpu", "--data", "fake", "--steps", "1",
             "--n-critic", "1", "--batch-size", "4"]
 
 
-def test_main_one_full_width_step_on_cpu(capsys):
-    state = train_sngan.main(CPU_ARGS)
+def test_main_one_full_width_step_on_cpu(tmp_path):
+    state = train_sngan.main(CPU_ARGS + ["--out-dir", str(tmp_path)])
     assert state.step == 1
     assert sum(p.numel() for p in state.d.parameters()) > 1_000_000
     assert len(state.d.sn_layers) == 11
-    log = capsys.readouterr().out.strip().splitlines()[-1]
-    metrics = json.loads(log)
+    with open(tmp_path / "log.jsonl") as f:
+        (metrics,) = [json.loads(line) for line in f]
     assert metrics["step"] == 1
     assert set(metrics) == {"step", "d_loss", "d_real", "d_fake", "g_loss"}
     assert all(math.isfinite(v) for v in metrics.values())
@@ -73,18 +73,27 @@ def test_device_fake_images():
 
 def test_import_leaves_jax_out():
     """Importing the port, and what chip_smoke.py imports, loads neither JAX
-    nor the JAX package."""
+    nor the JAX package, nor orbax, Pillow, matplotlib or tensorboard (the
+    card has none of them)."""
     code = (
         "import sys; sys.path.insert(0, %r)\n"
         "import chip_smoke, profile_torch_step\n"
+        "import gan_lib_tensorflow_tpu_torch.cli.evaluate\n"
+        "import gan_lib_tensorflow_tpu_torch.cli.sample\n"
         "import gan_lib_tensorflow_tpu_torch.cli.train_pggan\n"
         "import gan_lib_tensorflow_tpu_torch.cli.train_sngan\n"
         "import gan_lib_tensorflow_tpu_torch.convert\n"
+        "import gan_lib_tensorflow_tpu_torch.eval.features\n"
+        "import gan_lib_tensorflow_tpu_torch.eval.inception_v3\n"
+        "import gan_lib_tensorflow_tpu_torch.eval.metrics\n"
         "import gan_lib_tensorflow_tpu_torch.models.sngan\n"
         "import gan_lib_tensorflow_tpu_torch.ops.fadein\n"
         "import gan_lib_tensorflow_tpu_torch.ops.power_iteration\n"
+        "import gan_lib_tensorflow_tpu_torch.train.checkpoint\n"
+        "import gan_lib_tensorflow_tpu_torch.utils\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'gan_lib_tensorflow_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'gan_lib_tensorflow_tpu', "
+        "'PIL', 'matplotlib', 'tensorboard')]\n"
         "assert not bad, bad\n" % REPO)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env,
@@ -103,7 +112,8 @@ def _port_files():
 @pytest.mark.parametrize("path", sorted(_port_files()),
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_no_jax_imports_in_source(path):
-    banned = ("jax", "jaxlib", "flax", "optax", "gan_lib_tensorflow_tpu")
+    banned = ("jax", "jaxlib", "flax", "optax", "orbax", "gan_lib_tensorflow_tpu",
+              "PIL", "matplotlib", "tensorboard")
     with open(path) as f:
         tree = ast.parse(f.read())
     for node in ast.walk(tree):

@@ -125,18 +125,24 @@ def test_batch_by_res_cli_override():
         parse_batch_by_res("512x16")
 
 
-def test_cli_on_cpu():
-    """The module entry point, bf16 compute (the default), a tiny width."""
+def test_cli_on_cpu(tmp_path):
+    """The module entry point, bf16 compute (the default), a tiny width; one
+    directory per phase under --out-dir with its log, samples and checkpoint."""
     cmd = [sys.executable, "-m", "gan_lib_tensorflow_tpu_torch.cli.train_pggan",
            "--device", "cpu", "--data", "fake", "--final-resolution", "8",
            "--width-mul", "0.015625", "--z-dim", "8", "--steps-per-phase", "1",
-           "--batch-by-res", "4:4,8:4", "--log-every", "1"]
+           "--batch-by-res", "4:4,8:4", "--log-every", "1", "--out-dir", str(tmp_path)]
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True,
                          timeout=300, check=True).stdout.splitlines()
     assert [line.split(":")[0] for line in out if line.startswith("[pggan]")] == [
         "[pggan] 8x8 transition", "[pggan] 8x8 stabilize"]
-    metrics = [json.loads(line) for line in out if line.startswith("{")]
+    metrics = []
+    for phase in ("4x4_stabilize", "8x8_transition", "8x8_stabilize"):
+        with open(tmp_path / phase / "log.jsonl") as f:
+            metrics += [json.loads(line) for line in f]
+        assert os.path.exists(tmp_path / phase / "ckpt" / "step_000001.pt")
+        assert os.path.exists(tmp_path / phase / "sample_000001.png")
     assert len(metrics) == 3
     assert all(math.isfinite(v) for m in metrics for v in m.values())
 
