@@ -56,6 +56,27 @@ final line):
      interrupted in the 64x64 transition and re-run to its end, the fade-in
      kernel launched 6 times per transition step (and once per sample grid
      of a transition phase)
+ 10. data layer and north star (in a temporary directory): a synthetic
+     CIFAR-10 pickle directory at the real layout and size (50,000 + 10,000
+     images); ``train_sngan.main --data <dir>`` for 12 full-width steps
+     through ``DeviceCachedStore`` (resident bytes, ms/step, 6
+     power-iteration launches per step), one device batch bit-equal to the
+     host gather of the same ``indices_for(pos)``; a ``--device-cache off``
+     run's first batch through ``prefetch_to_device`` bit-equal to the host
+     stream's, and 2 steps of it; one ``north_star.main`` call on that
+     directory with an InceptionV3 npz written from the port's random-init
+     net (statistics calibrated on the data): a verdict line and
+     ``graded: true`` in its record (FAIL is expected: the extractor is
+     random)
+ 11. SNGAN-projection ImageNet-128 at full width: a packed store of 3,200
+     128x128 images with 1000-class labels written by the port's
+     ``write_store``; ``train_sngan_imagenet.main --data <store>`` for 12
+     steps across an epoch boundary (images/s, ms/step, peak memory, 6
+     power-iteration launches per step, which of D's 19 weights the kernel
+     streams); the kernel against its plain version at D's 19 weights; full
+     width float32 G and D on the card against the CPU at batch 2; the
+     19-weight launch's device time beside its bound and the empty-kernel
+     floor
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -68,6 +89,7 @@ import copy
 import json
 import math
 import os
+import pickle
 import shutil
 import statistics
 import struct
@@ -100,6 +122,11 @@ PALLAS_SHAPES = [(1152, 128), (27, 64), (128, 1), (9, 256)]
 # the SNGAN-projection ImageNet-128 D's widest 3x3 convs (512->1024, 1024->1024):
 # slabs too large for shared memory, streamed from device memory
 IMAGENET_WIDE_SHAPES = [(4608, 1024), (9216, 1024)]
+# the real CIFAR-10 layout: five training pickles and one test pickle of
+# 10,000 images each, 3072 bytes per image
+CIFAR_FILES, CIFAR_PER_FILE = [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"], 10_000
+CIFAR_STEPS, IMAGENET_STEPS, LOG_EVERY = 12, 12, 4
+IMAGENET_STORE = 3_200  # 10 fused steps of 5 x 64 images: an epoch ends inside the run
 
 
 def nvidia_smi(fields: str) -> str:
@@ -501,6 +528,276 @@ def checkpoint_resume_eval(card: str, tmp: str) -> None:
           f"transition step, 1 per transition sample grid), {pg_s:.1f} s for both runs")
 
 
+def captured(module, name: str, sink: list) -> None:
+    """Wrap ``module.name`` so each call appends its return value to
+    ``sink`` (the data source a CLI builds inside its ``main``)."""
+    inner = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        sink.append(out)
+        return out
+
+    setattr(module, name, wrapped)
+    return inner
+
+
+def last_sec_per_step(out_dir: str) -> float:
+    """``sec_per_step`` of the last line of ``log.jsonl``: the wall time of
+    the last ``LOG_EVERY`` steps, the metric read that ends them included."""
+    with open(os.path.join(out_dir, "log.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    check(all(math.isfinite(v) for rec in lines for v in rec.values()),
+          f"non-finite metrics in {out_dir}/log.jsonl")
+    return lines[-1]["sec_per_step"]
+
+
+def write_cifar(path: str, seed: int = 0) -> None:
+    """A synthetic ``cifar-10-batches-py`` at the real layout and size."""
+    import numpy as np
+    os.makedirs(path)
+    rng = np.random.default_rng(seed)
+    for name in CIFAR_FILES:
+        with open(os.path.join(path, name), "wb") as f:
+            pickle.dump({b"data": rng.integers(0, 256, (CIFAR_PER_FILE, 3072), "uint8"),
+                         b"labels": rng.integers(0, 10, CIFAR_PER_FILE).tolist()}, f)
+
+
+def calibrated_inception_npz(path: str, images) -> None:
+    """Write the port's random-init InceptionV3 in the npz layout the
+    reference's converter writes, its stored BN statistics set to the batch
+    statistics of ``images`` (so the stored-statistics extractor a graded
+    run loads normalizes as the random-init one does)."""
+    import torch
+    from gan_lib_tensorflow_tpu_torch.eval.inception_v3 import (BasicConv, InceptionV3Features,
+                                                                save_params_npz)
+    net = InceptionV3Features(seed=0, device="cuda")  # batch statistics
+    convs = [m for m in net.model.modules() if isinstance(m, BasicConv)]
+    stats = {}
+    hooks = [m.conv.register_forward_hook(
+        lambda mod, inp, out, m=m: stats.__setitem__(
+            m, (out.mean(dim=(0, 2, 3)), out.var(dim=(0, 2, 3), unbiased=False))))
+        for m in convs]
+    net(images)
+    for h in hooks:
+        h.remove()
+    with torch.no_grad():
+        for m in convs:
+            m.moving_mean.copy_(stats[m][0])
+            m.moving_variance.copy_(stats[m][1])
+    save_params_npz(path, net.model)
+
+
+def data_layer_and_north_star(card: str, tmp: str) -> None:
+    """Phase 10, in the temporary directory ``tmp``."""
+    import numpy as np
+    import torch
+    from gan_lib_tensorflow_tpu_torch import data
+    from gan_lib_tensorflow_tpu_torch.cli import common, north_star, train_sngan
+    from gan_lib_tensorflow_tpu_torch.ops import power_iteration as pi
+    from gan_lib_tensorflow_tpu_torch.train.loop import device_batches
+
+    cifar = os.path.join(tmp, "cifar-10-batches-py")
+    t0 = time.perf_counter()
+    write_cifar(cifar)
+    host = data.Cifar10(data_dir=cifar)
+    check(host.images.shape == (50_000, 32, 32, 3), f"CIFAR store {host.images.shape}")
+    print(f"synthetic CIFAR-10 at the real layout: {len(CIFAR_FILES)} pickles of "
+          f"{CIFAR_PER_FILE} images, written and read in {time.perf_counter() - t0:.2f} s")
+
+    # (a) the full-width SNGAN step on the store held on the card
+    sources = []
+    inner = captured(common, "image_source", sources)
+    run = os.path.join(tmp, "sngan_cifar")
+    sn_args = ["--data", cifar, "--device", "cuda", "--batch-size", str(BATCH),
+               "--n-critic", str(N_CRITIC), "--compute-dtype", "bf16",
+               "--log-every", str(LOG_EVERY), "--sample-every", "1000", "--ckpt-every", "1000"]
+    try:
+        pi.launches = 0  # count this path's launches only
+        state = train_sngan.main(sn_args + ["--steps", str(CIFAR_STEPS), "--out-dir", run])
+        torch.cuda.synchronize()
+        launches = pi.launches
+    finally:
+        common.image_source = inner
+    src = sources[0]
+    check(isinstance(src, data.DeviceCachedStore), f"--data <dir> gave {type(src).__name__}")
+    resident = src.nbytes_resident()
+    check(resident >= 153_600_000, f"{resident} bytes resident, want the whole store")
+    check(state.step == CIFAR_STEPS and launches == (N_CRITIC + 1) * CIFAR_STEPS,
+          f"power-iteration launches {launches} in {state.step} steps, want 6 per step")
+    sps = last_sec_per_step(run)
+    idx = src.indices_for(5)
+    dev = src.gather(idx)
+    want = data.normalize_u8(torch.from_numpy(host.images[idx]))
+    check(torch.equal(dev["image"].cpu(), want)
+          and np.array_equal(dev["image"].cpu().numpy(),
+                             data.base.normalize_u8_np(host.images[idx]))
+          and np.array_equal(dev["label"].cpu().numpy(), host.labels[idx]),
+          "a device batch differs from the host gather of the same indices")
+    print(f"SNGAN on CIFAR-10 held on the card: {resident} bytes resident, "
+          f"{1e3 * sps:.2f} ms/step over steps {CIFAR_STEPS - LOG_EVERY + 1}-{CIFAR_STEPS} "
+          f"({N_CRITIC * BATCH / sps:.1f} images/s), power-iteration launches {launches} in "
+          f"{CIFAR_STEPS} steps; step 5's batch [{N_CRITIC}, {BATCH}, 32, 32, 3] gathered and "
+          f"normalized on the card equals the host gather bit for bit  [{card}]")
+
+    # (b) streamed: uint8 from one host worker, normalized on the card
+    args = train_sngan.parse_args(sn_args + ["--device-cache", "off"])
+    streamed = common.image_source(args, BATCH, 32, 10, n_micro=N_CRITIC)
+    check(isinstance(streamed, data.ThreadedSource), "--device-cache off did not stream")
+    first = next(device_batches(streamed, N_CRITIC, torch.device("cuda")))
+    worker = iter(data.Cifar10(batch_size=BATCH, data_dir=cifar, seed=args.seed + 1000003))
+    for i in range(N_CRITIC):
+        b = next(worker)
+        check(torch.equal(first["image"][i].cpu(), data.normalize_u8(torch.from_numpy(b["image"])))
+              and np.array_equal(first["label"][i].cpu().numpy(), b["label"]),
+              f"streamed microbatch {i} differs from the host stream")
+    pi.launches = 0
+    t0 = time.perf_counter()
+    state = train_sngan.main(sn_args + ["--device-cache", "off", "--steps", "2",
+                                        "--out-dir", os.path.join(tmp, "sngan_streamed")])
+    torch.cuda.synchronize()
+    check(state.step == 2 and pi.launches == 2 * (N_CRITIC + 1),
+          f"streamed run: {pi.launches} launches in 2 steps")
+    print(f"--device-cache off: the first stack through prefetch_to_device equals the "
+          f"host worker's uint8 batches normalized on the CPU, bit for bit; 2 steps "
+          f"trained ({time.perf_counter() - t0:.2f} s with the build), {pi.launches} launches")
+    del state, src, sources
+
+    # (c) the north star on that directory, graded with a random extractor
+    npz = os.path.join(tmp, "inception_v3.npz")
+    calibrated_inception_npz(npz, data.normalize_u8(torch.from_numpy(host.images[:64])).cuda())
+    out = os.path.join(tmp, "north_star")
+    t0 = time.perf_counter()
+    rc = north_star.main(["--data-dir", tmp, "--inception-weights", npz, "--out-dir", out,
+                          "--steps", "4", "--n-samples", "1000", "--n-real", "1000",
+                          "--device", "cuda"])
+    ns_s = time.perf_counter() - t0
+    with open(os.path.join(out, "north_star_result.json")) as f:
+        rec = json.load(f)
+    check(rc in (0, 1) and rec["graded"] is True and rec["verdict"] in ("PASS", "FAIL")
+          and math.isfinite(rec["fid"]) and rec["step"] == 4
+          and rec["extractor"] == "inception_v3_pretrained"
+          and os.path.abspath(rec["real_source"]) == os.path.abspath(cifar),
+          f"north star rc {rc}, record {rec}")
+    print(f"north_star: rc {rc}, verdict {rec['verdict']} (graded {rec['graded']}), FID "
+          f"{rec['fid']!r}, IS {rec['inception_score']!r}, 4 steps, 1000 samples and 1000 "
+          f"reals, {ns_s:.1f} s  [{card}]")
+
+
+def imagenet128(card: str, tmp: str) -> None:
+    """Phase 11, in the temporary directory ``tmp``."""
+    import numpy as np
+    import torch
+    from gan_lib_tensorflow_tpu_torch.cli import train_sngan_imagenet
+    from gan_lib_tensorflow_tpu_torch.data.packed import finalize_store, write_store
+    from gan_lib_tensorflow_tpu_torch.models import sngan
+    from gan_lib_tensorflow_tpu_torch.ops import power_iteration as pi
+
+    store = os.path.join(tmp, "imagenet128")
+    t0 = time.perf_counter()
+    images, labels = write_store(store, IMAGENET_STORE, 128, 128, 3,
+                                 classes=[str(c) for c in range(1000)])
+    rng = np.random.default_rng(1)
+    images[:] = rng.integers(0, 256, images.shape, np.uint8)
+    labels[:] = rng.integers(0, 1000, IMAGENET_STORE)
+    finalize_store(store, images, labels)
+    del images
+    print(f"packed store: {IMAGENET_STORE} images of 128x128x3 with 1000-class labels "
+          f"({IMAGENET_STORE * 128 * 128 * 3} bytes), written in {time.perf_counter() - t0:.2f} s")
+
+    run = os.path.join(tmp, "imagenet_run")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pi.launches = 0  # count this path's launches only
+    t0 = time.perf_counter()
+    state = train_sngan_imagenet.main([
+        "--data", store, "--device", "cuda", "--steps", str(IMAGENET_STEPS),
+        "--log-every", str(LOG_EVERY), "--sample-every", "1000", "--ckpt-every", "1000",
+        "--compute-dtype", "bf16", "--out-dir", run])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = pi.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(state.step == IMAGENET_STEPS and launches == (N_CRITIC + 1) * IMAGENET_STEPS,
+          f"power-iteration launches {launches} in {state.step} steps, want 6 per step")
+    d = state.d
+    dims = [(m.weight[0].numel(), m.weight.shape[0]) for m in d.sn_layers]
+    check(len(dims) == 19, f"{len(dims)} SN weights in the ImageNet-128 D")
+    plan = pi.plan_power_iteration(dims)  # what D's table was built from
+    streamed = sorted({c.weight for c in plan.ctas if c.stream})
+    names = [n for n, m in d.named_modules() if m in d.sn_layers]
+    sps = last_sec_per_step(run)
+    print(f"SNGAN-projection ImageNet-128, full width, 1000 classes, batch {BATCH}, n_critic "
+          f"{N_CRITIC}, bf16, from the store held on the card: images/s/GPU "
+          f"{N_CRITIC * BATCH / sps:.1f}  ms/step {1e3 * sps:.2f} (steps "
+          f"{IMAGENET_STEPS - LOG_EVERY + 1}-{IMAGENET_STEPS})  peak memory "
+          f"{peak / 2**20:.0f} MiB  kernel launches {launches} in {IMAGENET_STEPS} steps; "
+          f"{run_s:.1f} s for the run with its build  [{card}]")
+    print(f"power-iteration plan of D's 19 weights: {len(plan.ctas)} CTAs, "
+          f"{plan.smem_bytes} B of shared memory per CTA; streamed from device memory: "
+          + ", ".join(f"{names[i]} {list(dims[i])}" for i in streamed))
+
+    # the kernel at D's 19 weights against its plain version
+    err = compare_kernel(pi, torch, dims, 4)
+    print(f"batched_power_iteration at the ImageNet-128 D's 19 weights "
+          f"({sum(m * k for m, k in dims)} values): sigma/u'/v/grad agree with the plain "
+          f"version (rtol 1e-4, TF32 off), max abs err {err:.3e}")
+
+    # full-width float32 G and D, card vs CPU, batch 2
+    g32 = sngan.imagenet128_generator()
+    d32 = sngan.imagenet128_discriminator()
+    g32.load_state_dict(state.g.state_dict())
+    d32.load_state_dict(d.state_dict())
+    gen = torch.Generator().manual_seed(0)
+    z = torch.randn(2, 128, generator=gen)
+    lab = torch.tensor([3, 997])
+    with torch.no_grad():
+        imgs_cpu = g32(z, lab, train=False)
+        logits_cpu = d32(imgs_cpu, lab)
+        imgs = g32.cuda()(z.cuda(), lab.cuda(), train=False)
+        logits = d32.cuda()(imgs, lab.cuda())
+    check(tuple(imgs.shape) == (2, 128, 128, 3) and bool(torch.isfinite(imgs).all())
+          and bool(torch.isfinite(logits).all()), "ImageNet-128 G/D output not finite")
+    torch.testing.assert_close(imgs.cpu(), imgs_cpu, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(logits.cpu(), logits_cpu, rtol=1e-3, atol=1e-3)
+    print(f"float32 ImageNet-128 G and D at full width on the card agree with the CPU "
+          f"(rtol 1e-3, atol 1e-3): max abs err images "
+          f"{float((imgs.cpu() - imgs_cpu).abs().max()):.3e}, logits "
+          f"{float((logits.cpu() - logits_cpu).abs().max()):.3e}")
+    del g32, d32, state
+
+    # the 19-weight launch by device time
+    ws = [m.weight.detach() for m in d.sn_layers]
+    us = [m.u.detach().clone() for m in d.sn_layers]
+    table = pi.PowerIterationTable()
+    t = timed_in_turns({"kernel": lambda: pi.launch(ws, us, table=table),
+                        "plain": lambda: pi.plain_power_iteration(ws, us)}, 50)
+    floor_ms = device_ms(lambda: pi.launch_empty(table), 200)
+    ms_, ks = [m for m, _ in dims], [k for _, k in dims]
+    n_bytes = 4 * (sum(m * k for m, k in dims) + sum(ks) + len(ws) + sum(ks) + sum(ms_))
+    n_flops = sum(4 * m * k for m, k in dims)
+    bound_ms = 1e3 * max(n_bytes / PEAK_BYTES_PER_S, n_flops / PEAK_FP32_FLOPS)
+    print(f"batched_power_iteration, ImageNet-128 D (19 weights): kernel "
+          f"{1e3 * t['kernel']:.2f} us, plain {1e3 * t['plain']:.2f} us, empty-kernel floor "
+          f"{1e3 * floor_ms:.2f} us, bound {1e3 * bound_ms:.2f} us (bytes: {n_bytes} B at "
+          f"3.35 TB/s; {n_flops} flop), {n_bytes / t['kernel'] / 1e9:.3f} TB/s, "
+          f"{bound_ms / t['kernel']:.3f} of the bound; {N_CRITIC + 1} launches per step "
+          f"{(N_CRITIC + 1) * 1e3 * t['kernel']:.1f} us of {1e3 * sps:.2f} ms  [{card}]")
+    # where the launch's time goes: the streamed weights, the others, and the
+    # largest weight alone (one cluster of 8 CTAs), each as its own launch
+    largest = max(range(len(dims)), key=lambda i: dims[i][0] * dims[i][1])
+    for label, sel in (("streamed", streamed),
+                       ("slab in shared memory", [i for i in range(len(dims)) if i not in streamed]),
+                       (f"largest alone ({names[largest]})", [largest])):
+        if not sel:
+            continue
+        sub_w, sub_u, sub_t = [ws[i] for i in sel], [us[i] for i in sel], pi.PowerIterationTable()
+        sub_ms = device_ms(lambda: pi.launch(sub_w, sub_u, table=sub_t), 50)
+        w_bytes = 4 * sum(dims[i][0] * dims[i][1] for i in sel)
+        print(f"  {label}: {len(sel)} weights, {w_bytes} B of W, {1e3 * sub_ms:.2f} us, "
+              f"{w_bytes / sub_ms / 1e9:.3f} TB/s of W read once  [{card}]")
+
+
 def main() -> None:
     import torch
 
@@ -790,6 +1087,24 @@ def main() -> None:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.backends.cudnn.deterministic = False
     print(f"phase 9: {time.perf_counter() - t9:.1f} s  [{card}]")
+
+    phase("10 data layer and north star: CIFAR-10 held on the card")
+    t10 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        data_layer_and_north_star(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 10: {time.perf_counter() - t10:.1f} s  [{card}]")
+
+    phase("11 SNGAN-projection ImageNet-128 at full width")
+    t11 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        imagenet128(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 11: {time.perf_counter() - t11:.1f} s  [{card}]")
 
     print(json.dumps({"kernels": [{
         "name": "batched_power_iteration",

@@ -45,8 +45,12 @@ def parse_args(argv=None):
                    help="override entries of the Karras per-resolution batch "
                         "schedule, e.g. '512:16,1024:8'; the generic "
                         "--batch-size flag is NOT used by the ladder")
-    p.set_defaults(lr=1e-3)
-    return p.parse_args(argv)
+    p.set_defaults(lr=1e-3, data="fake")
+    args = p.parse_args(argv)
+    if args.data != "fake":
+        raise SystemExit(f"--data {args.data}: the ladder trains on 'fake' only; the "
+                         f"multi-resolution real sources are ROADMAP.md Queue 1 item 8")
+    return args
 
 
 def ladder_config(args) -> LadderConfig:

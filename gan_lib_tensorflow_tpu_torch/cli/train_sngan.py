@@ -5,6 +5,8 @@ under ``--out-dir``, sample grids, periodic IS/FID.
 
 Usage: python -m gan_lib_tensorflow_tpu_torch.cli.train_sngan --data fake --steps 20 \
            --out-dir runs/sngan [--ckpt-every 5000] [--eval-every 10000]
+       python -m gan_lib_tensorflow_tpu_torch.cli.train_sngan \
+           --data data/cifar-10-batches-py [--device-cache auto|on|off]
 """
 
 from __future__ import annotations
@@ -14,11 +16,13 @@ import sys
 
 import torch
 
+from ..data import DeviceCachedStore
 from ..eval import compute_statistics, evaluate_generator
 from ..eval.inception_v3 import InceptionV3Features
 from ..models import sngan
 from ..train import (CheckpointManager, LoopConfig, create_state,
                      make_train_step, train_loop)
+from ..train.loop import device_batches
 from ..utils import save_image_grid
 from . import common
 
@@ -67,15 +71,27 @@ def build(args):
     return g, d, spec, state
 
 
-def make_eval_fn(args, sampler, z_dim: int, device: torch.device):
+def real_batches(args, source, n_batches: int):
+    """``n_batches`` normalized real ``[EVAL_BATCH, 32, 32, 3]`` batches on
+    the card for the real moments. A training store resident on the card is
+    read in place (``sequential_batches``), not uploaded a second time;
+    otherwise a new source of the same --data is drawn and dropped after."""
+    if (isinstance(source, DeviceCachedStore)
+            and n_batches * EVAL_BATCH <= len(source)):
+        yield from source.sequential_batches(EVAL_BATCH, n_batches)
+        return
+    real = device_batches(common.image_source(args, EVAL_BATCH, 32, 10), 1, args.device)
+    for _ in range(n_batches):
+        yield next(real)["image"][0]
+
+
+def make_eval_fn(args, sampler, z_dim: int, device: torch.device, source=None):
     """``eval_fn(state, it)`` -> IS/FID of ``--eval-samples`` EMA samples.
-    The real moments are computed once, here, from the training data's kind
-    of source at batch 100."""
+    The real moments are computed once, here, at batch 100."""
     net = InceptionV3Features(params_npz=args.inception_weights, device=args.device)
-    real = iter(common.image_source(args, EVAL_BATCH, 32, 10))
     n_real = max(args.eval_samples // EVAL_BATCH, 1)
-    real_stats = compute_statistics(
-        net, (next(real)["image"][0] for _ in range(n_real)), net.feature_dim)
+    real_stats = compute_statistics(net, real_batches(args, source, n_real),
+                                    net.feature_dim)
 
     def eval_fn(state, it: int) -> dict:
         def sample_batch(gen: torch.Generator) -> torch.Tensor:
@@ -103,7 +119,8 @@ def main(argv=None):
         save_image_grid(sampler(st, z_grid).cpu().numpy(),
                         os.path.join(args.out_dir, "samples", f"sample_{it:06d}.png"))
 
-    eval_fn = make_eval_fn(args, sampler, g.z_dim, device) if args.eval_every else None
+    eval_fn = (make_eval_fn(args, sampler, g.z_dim, device, source)
+               if args.eval_every else None)
     cfg = LoopConfig(total_steps=args.steps, log_every=args.log_every,
                      sample_every=args.sample_every,
                      checkpoint_every=args.ckpt_every,
@@ -112,7 +129,8 @@ def main(argv=None):
     ckpt = CheckpointManager(os.path.join(args.out_dir, "ckpt"))
     try:
         return train_loop(state, make_train_step(spec), source, cfg,
-                          sample_fn=sample_fn, ckpt=ckpt, eval_fn=eval_fn)
+                          sample_fn=sample_fn, ckpt=ckpt, eval_fn=eval_fn,
+                          n_micro=spec.n_critic)
     finally:
         ckpt.close()
 

@@ -2,7 +2,10 @@
 state.py``), given as numpy trees, into the port's ``GANTrainState``.
 
 Layouts: conv kernels HWIO -> OIHW, Dense kernels ``[in, out]`` -> ``[out,
-in]``, BN ``scale`` -> ``weight``; ``'sn'`` ``u`` -> the layer's ``u`` buffer;
+in]``, embedding tables ``[num_embeddings, features]`` -> ``[features,
+num_embeddings]`` (conditional BN's gamma and beta, the projection's SN
+``proj_embed``), BN ``scale`` -> ``weight``; ``'sn'`` ``u`` -> the layer's
+``u`` buffer;
 ``'batch_stats'`` ``mean``/``var`` -> ``running_mean``/``running_var``. optax
 Adam ``mu``/``nu``/``count`` become ``torch.optim.Adam``'s ``exp_avg``/
 ``exp_avg_sq``/``step``. Flax module names are the port's module names, so a
@@ -28,8 +31,8 @@ from typing import Any, Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-_LEAF_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias",
-               "u": "u", "mean": "running_mean", "var": "running_var"}
+_LEAF_NAMES = {"kernel": "weight", "embedding": "weight", "scale": "weight",
+               "bias": "bias", "u": "u", "mean": "running_mean", "var": "running_var"}
 
 
 def _field(obj: Any, name: str) -> Any:
@@ -53,7 +56,7 @@ def to_torch_names(tree: Mapping) -> Dict[str, np.ndarray]:
         if name not in _LEAF_NAMES:
             raise ValueError(f"no port counterpart for flax leaf {'/'.join(path)}")
         arr = np.asarray(leaf, dtype=np.float32)
-        if name == "kernel":
+        if name in ("kernel", "embedding"):
             arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
         out[".".join(mods + [_LEAF_NAMES[name]])] = np.array(arr, order="C")  # own, writable copy
     return out

@@ -274,6 +274,20 @@ def load_params_npz(path: str, model: InceptionV3) -> None:
     model.load_state_dict(state)
 
 
+def save_params_npz(path: str, model: InceptionV3) -> None:
+    """Write ``model``'s tensors as a flat npz in the reference's layout
+    (what ``load_params_npz`` reads)."""
+    out = {}
+    for name, t in _named_tensors(model).items():
+        arr = t.detach().cpu().float().numpy()
+        if arr.ndim == 4:
+            arr = arr.transpose(2, 3, 1, 0)
+        elif arr.ndim == 2:
+            arr = arr.T
+        out[_flax_path(name)] = np.ascontiguousarray(arr)
+    np.savez(path, **out)
+
+
 def random_init_(model: InceptionV3, seed: int = 0) -> None:
     """Seed-fixed random weights (flax's defaults in distribution: lecun
     normal kernels, zero biases and betas, stored statistics 0 and 1)."""

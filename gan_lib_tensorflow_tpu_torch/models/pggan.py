@@ -209,16 +209,16 @@ def make_pggan_spec(g_model: PGGANGenerator, d_model: PGGANDiscriminator,
     """WGAN-GP + drift spec (reference ``make_pggan_spec``), n_critic 1.
     Real, fake and interpolates take three separate D forwards, as in the
     reference: one concatenated batch would mix the minibatch-stddev
-    groups."""
+    groups. Unconditional: the step's ``labels`` are None."""
 
-    def prepare_fakes(z_stack: torch.Tensor, alpha: float) -> torch.Tensor:
+    def prepare_fakes(z_stack: torch.Tensor, alpha: float, labels=None) -> torch.Tensor:
         n_micro, n = z_stack.shape[:2]
         with torch.no_grad():
             fake = g_model(z_stack.reshape(n_micro * n, -1), alpha)
         return fake.reshape(n_micro, n, *fake.shape[1:])
 
     def d_loss(real, fake, alpha: float, noise: Optional[torch.Generator],
-               u_gp: Optional[torch.Tensor]):
+               u_gp: Optional[torch.Tensor], labels=None):
         real_logits = d_model(real, alpha)
         fake_logits = d_model(fake, alpha)
         if u_gp is None:
@@ -230,7 +230,7 @@ def make_pggan_spec(g_model: PGGANGenerator, d_model: PGGANDiscriminator,
         return loss, {"d_loss": loss.detach(), "wdist": -wd.detach(),
                       "gp": gp.detach()}
 
-    def g_loss(z: torch.Tensor, alpha: float) -> torch.Tensor:
+    def g_loss(z: torch.Tensor, alpha: float, labels=None) -> torch.Tensor:
         return wgan_g_loss(d_model(g_model(z, alpha), alpha))
 
     return GANSpec(prepare_fakes=prepare_fakes, d_loss=d_loss, g_loss=g_loss,

@@ -1,5 +1,6 @@
 """Residual blocks of the SNGAN ResNet (port of
-``gan_lib_tensorflow_tpu/ops/blocks.py``), unconditional. NCHW inside.
+``gan_lib_tensorflow_tpu/ops/blocks.py``). NCHW inside. A generator block
+with ``num_classes`` > 0 uses conditional BN on the class labels.
 
 Discriminator blocks take ``sigmas``, a mapping from each spectral-norm layer
 to its sigma, computed by the discriminator in one batched launch; with
@@ -15,7 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .layers import Conv, DownsampleConv, UpsampleConv, downsample_avg
-from .norms import BatchNorm
+from .norms import BatchNorm, ConditionalBatchNorm
 
 
 def _sn(layer: nn.Module, x, sigmas: Optional[Mapping], update_sn: bool):
@@ -26,25 +27,33 @@ def _sn(layer: nn.Module, x, sigmas: Optional[Mapping], update_sn: bool):
 class GenResBlock(nn.Module):
     """BN -> ReLU -> up-conv 3x3 -> BN -> ReLU -> conv 3x3, plus a learned
     1x1 up-conv skip (reference ``blocks.py:30-77``, upsampling blocks only:
-    the only kind the CIFAR generator has)."""
+    the only kind the CIFAR and ImageNet-128 generators have). With
+    ``num_classes`` > 0 both BNs are conditional on ``labels``."""
 
     def __init__(self, in_channels: int, features: int,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None, num_classes: int = 0):
         super().__init__()
         cd = compute_dtype
-        self.bn1 = BatchNorm(in_channels, compute_dtype=cd)
+
+        def bn(ch):
+            return (ConditionalBatchNorm(num_classes, ch, compute_dtype=cd)
+                    if num_classes > 0 else BatchNorm(ch, compute_dtype=cd))
+
+        self.conditional = num_classes > 0
+        self.bn1 = bn(in_channels)
         self.conv1 = UpsampleConv(in_channels, features, 3, compute_dtype=cd)
-        self.bn2 = BatchNorm(features, compute_dtype=cd)
+        self.bn2 = bn(features)
         self.conv2 = Conv(features, features, 3, compute_dtype=cd)
         self.conv_skip = UpsampleConv(in_channels, features, 1, compute_dtype=cd)
 
-    def forward(self, x, train: bool = True, groups: int = 1,
+    def forward(self, x, labels=None, train: bool = True, groups: int = 1,
                 update_stats: bool = True):
         bn = dict(use_running_average=not train, groups=groups,
                   update_stats=update_stats)
-        h = F.relu(self.bn1(x, **bn))
+        cond = (labels,) if self.conditional else ()
+        h = F.relu(self.bn1(x, *cond, **bn))
         h = self.conv1(h)
-        h = F.relu(self.bn2(h, **bn))
+        h = F.relu(self.bn2(h, *cond, **bn))
         h = self.conv2(h)
         return h + self.conv_skip(x)
 

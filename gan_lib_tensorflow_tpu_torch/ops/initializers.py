@@ -49,3 +49,12 @@ def he_scale(fan_in: int, gain: float = math.sqrt(2.0)) -> float:
     fan_in is the logical kernel's ``kh * kw * in`` (``weight[0].numel()`` of
     an OIHW or ``[out, in]`` weight)."""
     return float(gain / math.sqrt(fan_in))
+
+
+@torch.no_grad()
+def glorot_uniform_(w: torch.Tensor,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax ``glorot_uniform`` of a 2-d table: uniform in +-sqrt(6 / (rows +
+    cols)), the same either way round."""
+    limit = math.sqrt(6.0 / (w.shape[0] + w.shape[1]))
+    return w.uniform_(-limit, limit, generator=generator)

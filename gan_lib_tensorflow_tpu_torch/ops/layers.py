@@ -1,9 +1,11 @@
 """Parameterized layers (port of ``gan_lib_tensorflow_tpu/ops/layers.py``),
-the ones on the SNGAN CIFAR and PGGAN paths: ``Dense``, ``Conv``,
-``UpsampleConv``, ``DownsampleConv`` and the resize helpers.
+the ones on the SNGAN, SNGAN-projection and PGGAN paths: ``Dense``,
+``Conv``, ``UpsampleConv``, ``DownsampleConv``, ``Embedding`` and the resize
+helpers.
 
-Activations are NCHW; conv weights OIHW and Dense weights ``[out, in]``, all
-float32. ``compute_dtype`` casts the activation and the (spectrally
+Activations are NCHW; conv weights OIHW, Dense weights ``[out, in]`` and
+embedding tables ``[features, num_embeddings]``, all float32.
+``compute_dtype`` casts the activation and the (spectrally
 normalized) weight at the conv/matmul boundary, as the reference does.
 
 Spectral norm: a layer with ``spectral_norm=True`` owns a ``u`` buffer
@@ -81,9 +83,10 @@ class _Layer(nn.Module):
 
 def init_weights(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
     """Re-draw every layer's weights (and SN ``u``) from ``generator``, each
-    by its own rule (He normal, or unit normal under equalized LR)."""
+    by its own rule (He normal, unit normal under equalized LR, Glorot
+    uniform or a constant for an embedding)."""
     for m in module.modules():
-        if isinstance(m, _Layer):
+        if isinstance(m, (_Layer, Embedding)):
             m.reset_parameters(generator)
 
 
@@ -166,6 +169,50 @@ class DownsampleConv(_Layer):
                 _cast(x, self.compute_dtype), _cast(w, self.compute_dtype),
                 padding=w.shape[-1] // 2))
         return self.add_bias(y)
+
+
+class Embedding(nn.Module):
+    """Label embedding, optionally spectral-normalized (reference
+    ``layers.py:294-313``; the projection discriminator's ``proj_embed``).
+
+    The table is stored ``[features, num_embeddings]``, the transpose of the
+    reference's ``[num_embeddings, features]``, like every weight here
+    ``[out, fan_in]``: the reference normalizes ``table.reshape(-1,
+    features)``, so ``features`` is the output side and ``u`` holds
+    ``features`` values, and the power-iteration kernel reads the table in
+    place. A lookup takes columns. ``init`` is ``"glorot"`` (the reference's
+    default), ``"ones"`` or ``"zeros"`` (conditional BN's gamma and beta)."""
+
+    def __init__(self, num_embeddings: int, features: int,
+                 spectral_norm: bool = False, init: str = "glorot"):
+        super().__init__()
+        if init not in ("glorot", "ones", "zeros"):
+            raise ValueError(f"init must be glorot|ones|zeros, got {init!r}")
+        self.weight = nn.Parameter(torch.empty(features, num_embeddings))
+        self.spectral_norm = spectral_norm
+        if spectral_norm:
+            self.register_buffer("u", torch.empty(1, features))
+        self.init = init
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        if self.init == "glorot":
+            initializers.glorot_uniform_(self.weight, generator)
+        else:
+            nn.init.constant_(self.weight, 1.0 if self.init == "ones" else 0.0)
+        if self.spectral_norm:
+            initializers.unit_normal_(self.u, generator)
+
+    def forward(self, labels: torch.Tensor, sigma=None,
+                update_sn: bool = False) -> torch.Tensor:
+        """labels ``[N]`` (integer) -> ``[N, features]`` float32 (no caller
+        casts a table: the reference's tables compute in float32)."""
+        w = self.weight
+        if self.spectral_norm:
+            if sigma is None:
+                sigma = batched_power_iteration([w], [self.u], update_sn)[0]
+            w = w / sigma
+        return w.t()[labels.long()]
 
 
 def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:

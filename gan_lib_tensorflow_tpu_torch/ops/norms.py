@@ -1,6 +1,6 @@
 """Normalizations (port of ``gan_lib_tensorflow_tpu/ops/norms.py``): the
-SNGAN path's ``BatchNorm``, and PGGAN's ``pixel_norm`` and
-``minibatch_stddev`` (stateless functions).
+SNGAN path's ``BatchNorm``, SNGAN-projection's ``ConditionalBatchNorm``, and
+PGGAN's ``pixel_norm`` and ``minibatch_stddev`` (stateless functions).
 
 Not torch's ``BatchNorm2d``: ``momentum`` is the fraction of the running
 stats kept (0.9), the variance is the biased ``max(E[x^2] - E[x]^2, 0)``,
@@ -18,18 +18,25 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .layers import Embedding
+
 
 MOMENTUM = 0.9   # fraction of the running stats kept per update
 EPSILON = 1e-5
 
 
 class BatchNorm(nn.Module):
+    """``affine=False`` drops the scale and bias (the reference's
+    ``use_scale=False, use_bias=False``, as conditional BN uses it)."""
+
     def __init__(self, features: int,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None, affine: bool = True):
         super().__init__()
         self.compute_dtype = compute_dtype
-        self.weight = nn.Parameter(torch.ones(features))   # flax 'scale'
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.affine = affine
+        if affine:
+            self.weight = nn.Parameter(torch.ones(features))   # flax 'scale'
+            self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
@@ -58,9 +65,35 @@ class BatchNorm(nn.Module):
                     self.running_mean.mul_(m).add_(mean.view(-1), alpha=1 - m)
                     self.running_var.mul_(m).add_(var.view(-1), alpha=1 - m)
             xf = xg
-        y = (xf - mean) * torch.rsqrt(var + EPSILON)
-        y = y.reshape(x.shape) * self.weight.view(shape) + self.bias.view(shape)
+        y = ((xf - mean) * torch.rsqrt(var + EPSILON)).reshape(x.shape)
+        if self.affine:
+            y = y * self.weight.view(shape) + self.bias.view(shape)
         return y.to(out_dtype)
+
+
+class ConditionalBatchNorm(nn.Module):
+    """BN whose gamma and beta are per-class embeddings picked by label
+    (reference ``norms.py:83-125``): BN without scale or bias in float32
+    (``bn``, which owns the running stats), then ``gamma[label]`` (init 1)
+    and ``beta[label]`` (init 0) per sample and channel, then the cast to
+    ``compute_dtype``. ``groups`` and ``update_stats`` are ``BatchNorm``'s."""
+
+    def __init__(self, num_classes: int, features: int,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.bn = BatchNorm(features, compute_dtype=torch.float32, affine=False)
+        self.gamma = Embedding(num_classes, features, init="ones")
+        self.beta = Embedding(num_classes, features, init="zeros")
+
+    def forward(self, x: torch.Tensor, labels: torch.Tensor,
+                use_running_average: bool = False, groups: int = 1,
+                update_stats: bool = True) -> torch.Tensor:
+        """x NCHW (or ``[N, C]``), labels ``[N]``."""
+        normed = self.bn(x, use_running_average, groups, update_stats)
+        shape = (x.shape[0], -1) + (1,) * (x.dim() - 2)
+        y = normed * self.gamma(labels).view(shape) + self.beta(labels).view(shape)
+        return y.to(x.dtype if self.compute_dtype is None else self.compute_dtype)
 
 
 def pixel_norm(x: torch.Tensor, epsilon: float = 1e-8) -> torch.Tensor:

@@ -1,15 +1,20 @@
 """Training loop (port of ``gan_lib_tensorflow_tpu/train/loop.py:28-201``):
 auto-resume, steps, the NaN guard, the fade-in schedule, fault injection,
 and the periodic log, sample, eval and checkpoint, in the reference's order.
-Profiler capture, curves and TensorBoard are not ported."""
+A source with ``yields_stacks`` (on-device sources) is iterated as it is;
+any other (host numpy batches) is stacked into ``[n_micro, B, ...]`` and
+copied to the card by ``prefetch_to_device``. Profiler capture, curves and
+TensorBoard are not ported."""
 
 from __future__ import annotations
 
 import dataclasses
 import math
 import time
-from typing import Any, Callable, Dict, Iterable, Optional
+from typing import Any, Callable, Dict, Iterable, Iterator, Optional
 
+from ..data.base import microbatch_stack
+from ..parallel import prefetch_to_device
 from ..utils.logging import ScalarLogger
 from .checkpoint import CheckpointManager
 
@@ -89,13 +94,23 @@ def _run_aux(label: str, fn: Callable[[], Any],
             time.sleep(_AUX_BACKOFF_S)
 
 
+def device_batches(source: Iterable, n_micro: int, device) -> Iterator:
+    """The loop's batches on ``device``: an on-device source's own stacks,
+    or a host source's batches stacked by ``n_micro`` and prefetched
+    (reference ``train/loop.py:143-153``)."""
+    if getattr(source, "yields_stacks", False):
+        return iter(source)
+    return prefetch_to_device(microbatch_stack(source, n_micro), device)
+
+
 def train_loop(state, step_fn: Callable, source: Iterable, config: LoopConfig,
                log_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
                alpha_fn: Optional[Callable[[int], float]] = None,
                sample_fn: Optional[Callable[[Any, int], None]] = None,
                ckpt: Optional[CheckpointManager] = None,
                logger: Optional[ScalarLogger] = None,
-               eval_fn: Optional[Callable[[Any, int], dict]] = None):
+               eval_fn: Optional[Callable[[Any, int], dict]] = None,
+               n_micro: int = 1):
     """Run ``step_fn(state, batch)`` from ``state.step`` to
     ``config.total_steps``, resuming first from ``ckpt``'s newest checkpoint
     when there is one. Metrics are read (which waits for the device) only
@@ -105,14 +120,15 @@ def train_loop(state, step_fn: Callable, source: Iterable, config: LoopConfig,
     ``state.alpha`` (a host float) before each step. After step ``it``: log,
     sample, eval, checkpoint, each when ``it`` is a multiple of its period or
     the last step. Pending checkpoint writes are waited for on the way out,
-    an exception's way included."""
+    an exception's way included. ``n_micro`` is the stack depth a host
+    source's batches are grouped into (the spec's n_critic)."""
     logger = logger or ScalarLogger(config.out_dir)
     if ckpt is not None and ckpt.restore_latest(state) is not None:
         print(f"resumed from step {state.step}", flush=True)
     start_step = state.step
     if hasattr(source, "set_stream_position"):
         source.set_stream_position(start_step)  # one batch per step
-    batches = iter(source)
+    batches = device_batches(source, n_micro, next(state.g.parameters()).device)
     aux_skips: dict = {}
     try:
         for step in range(start_step, config.total_steps):

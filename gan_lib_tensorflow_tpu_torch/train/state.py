@@ -96,11 +96,13 @@ def create_state(g: nn.Module, d: nn.Module, *, lr: float = 2e-4,
                  beta1: float = 0.0, beta2: float = 0.9,
                  ema_decay: float = 0.0, seed: int = 0,
                  lr_lambda: Optional[Callable[[int], float]] = None,
-                 device="cuda") -> GANTrainState:
+                 device="cuda", d_lr: Optional[float] = None) -> GANTrainState:
     """Draw both networks' weights from ``seed`` (each layer by its own rule,
     ``ops/layers.py:init_weights``, so any model family's), move them to
-    ``device`` and build Adam (optax's defaults: eps 1e-8) for each. ``lr_lambda`` maps
-    an optimizer's own update count to an lr multiplier."""
+    ``device`` and build Adam (optax's defaults: eps 1e-8) for each: G's at
+    ``lr``, D's at ``d_lr`` (default ``lr``; two rates are the TTUR of
+    SNGAN-projection). ``lr_lambda`` maps an optimizer's own update count to
+    an lr multiplier."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     init_weights(g, gen)
@@ -108,7 +110,8 @@ def create_state(g: nn.Module, d: nn.Module, *, lr: float = 2e-4,
     g.to(dev)
     d.to(dev)
     g_opt = torch.optim.Adam(g.parameters(), lr=lr, betas=(beta1, beta2), eps=1e-8)
-    d_opt = torch.optim.Adam(d.parameters(), lr=lr, betas=(beta1, beta2), eps=1e-8)
+    d_opt = torch.optim.Adam(d.parameters(), lr=lr if d_lr is None else d_lr,
+                             betas=(beta1, beta2), eps=1e-8)
     sched = (lambda opt: None) if lr_lambda is None else (
         lambda opt: torch.optim.lr_scheduler.LambdaLR(opt, lr_lambda))
     ema = ({n: p.detach().clone() for n, p in g.named_parameters()}

@@ -79,16 +79,24 @@ def test_import_leaves_jax_out():
         "import sys; sys.path.insert(0, %r)\n"
         "import chip_smoke, profile_torch_step\n"
         "import gan_lib_tensorflow_tpu_torch.cli.evaluate\n"
+        "import gan_lib_tensorflow_tpu_torch.cli.north_star\n"
         "import gan_lib_tensorflow_tpu_torch.cli.sample\n"
         "import gan_lib_tensorflow_tpu_torch.cli.train_pggan\n"
         "import gan_lib_tensorflow_tpu_torch.cli.train_sngan\n"
+        "import gan_lib_tensorflow_tpu_torch.cli.train_sngan_imagenet\n"
         "import gan_lib_tensorflow_tpu_torch.convert\n"
+        "import gan_lib_tensorflow_tpu_torch.data.cifar10\n"
+        "import gan_lib_tensorflow_tpu_torch.data.device_cache\n"
+        "import gan_lib_tensorflow_tpu_torch.data.imagenet\n"
+        "import gan_lib_tensorflow_tpu_torch.data.packed\n"
+        "import gan_lib_tensorflow_tpu_torch.data.pipeline\n"
         "import gan_lib_tensorflow_tpu_torch.eval.features\n"
         "import gan_lib_tensorflow_tpu_torch.eval.inception_v3\n"
         "import gan_lib_tensorflow_tpu_torch.eval.metrics\n"
         "import gan_lib_tensorflow_tpu_torch.models.sngan\n"
         "import gan_lib_tensorflow_tpu_torch.ops.fadein\n"
         "import gan_lib_tensorflow_tpu_torch.ops.power_iteration\n"
+        "import gan_lib_tensorflow_tpu_torch.parallel.prefetch\n"
         "import gan_lib_tensorflow_tpu_torch.train.checkpoint\n"
         "import gan_lib_tensorflow_tpu_torch.utils\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -28,6 +28,15 @@ CIFAR_D_SHAPES = ([(27, 128), (1152, 128), (3, 128), (1152, 128), (1152, 128),
 PALLAS_SHAPES = [(1152, 128), (27, 64), (128, 1), (9, 256)]
 # the SNGAN-projection ImageNet-128 D's widest 3x3 convs: slabs streamed
 IMAGENET_WIDE_SHAPES = [(4608, 1024), (9216, 1024)]
+# [fan_in, out] of the SNGAN-projection ImageNet-128 D's 19 SN weights, in
+# registration order: block0 (3), blocks 1-4 (3 each), block5 (2), dense_out,
+# proj_embed (the [1000 classes, 1024] table); 39,435,136 values, 9 streamed
+IMAGENET_D_SHAPES = ([(27, 64), (576, 64), (3, 64),
+                      (576, 128), (1152, 128), (64, 128),
+                      (1152, 256), (2304, 256), (128, 256),
+                      (2304, 512), (4608, 512), (256, 512),
+                      (4608, 1024), (9216, 1024), (512, 1024),
+                      (9216, 1024), (9216, 1024), (1024, 1), (1000, 1024)])
 # ragged splits: M not a multiple of 4 (4-byte copies), a last rank narrower
 # than the others, K larger than a CTA's threads
 RAGGED_SHAPES = [(1153, 130), (64, 3000), (2000, 40)]
@@ -48,9 +57,9 @@ def _inputs(shapes, dev, seed=0):
 
 
 @pytest.mark.parametrize("shapes", [CIFAR_D_SHAPES, PALLAS_SHAPES, IMAGENET_WIDE_SHAPES,
-                                    RAGGED_SHAPES],
+                                    RAGGED_SHAPES, IMAGENET_D_SHAPES],
                          ids=["cifar_d_shapes", "pallas_shapes", "imagenet_wide_shapes",
-                              "ragged_shapes"])
+                              "ragged_shapes", "imagenet_d_shapes"])
 def test_kernel_matches_plain(card, shapes):
     ws, us = _inputs(shapes, card)
     before = pi.launches
@@ -62,8 +71,8 @@ def test_kernel_matches_plain(card, shapes):
     torch.testing.assert_close(v_out, torch.cat(v_ref), rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("shapes", [CIFAR_D_SHAPES, IMAGENET_WIDE_SHAPES],
-                         ids=["cifar_d_shapes", "imagenet_wide_shapes"])
+@pytest.mark.parametrize("shapes", [CIFAR_D_SHAPES, IMAGENET_WIDE_SHAPES, IMAGENET_D_SHAPES],
+                         ids=["cifar_d_shapes", "imagenet_wide_shapes", "imagenet_d_shapes"])
 def test_two_launches_are_bit_identical(card, shapes):
     """No atomics and a fixed order of every sum: the same inputs give the
     same sigma, u' and v, bit for bit."""
@@ -112,6 +121,22 @@ def test_discriminator_on_card_matches_cpu(card):
         before = pi.launches
         got = d.to(card)(x.to(card))
     assert pi.launches == before + 1  # one launch for all 11 SN weights
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-3, atol=1e-3)
+
+
+def test_imagenet_discriminator_on_card_matches_cpu(card):
+    """The projection D at full width: its 19 SN weights (the embedding
+    among them, read in place as [1024, 1000]) in one launch."""
+    gen = torch.Generator().manual_seed(1)
+    d = sngan.imagenet128_discriminator()
+    init_weights(d, gen)
+    x = torch.tanh(torch.randn(2, 128, 128, 3, generator=gen))
+    labels = torch.tensor([7, 998])
+    with torch.no_grad():
+        ref = d(x, labels)
+        before = pi.launches
+        got = d.to(card)(x.to(card), labels.to(card))
+    assert pi.launches == before + 1 and len(d.sn_layers) == 19
     torch.testing.assert_close(got.cpu(), ref, rtol=1e-3, atol=1e-3)
 
 
