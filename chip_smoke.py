@@ -77,6 +77,24 @@ final line):
      width float32 G and D on the card against the CPU at batch 2; the
      19-weight launch's device time beside its bound and the empty-kernel
      floor
+ 12. (a) ACGAN CIFAR-10 at full width (batch 100, bf16, bce, aux 1.0)
+     through ``train_acgan.main``: 24 steps timed (images/s, ms/step, peak
+     memory), no launch of either kernel; a run faulted at step 6 and
+     resumed from its step-4 checkpoint bit-equal to an uninterrupted
+     12-step run, dropout draws included (cuDNN deterministic); float32 G
+     and D card vs CPU at batch 2 with the same dropout masks;
+     ``cli.sample`` and ``cli.evaluate --model acgan`` (1000 samples, the
+     random-init InceptionV3). (b) the conditional CIFAR SNGAN
+     (``train_sngan.main --num-classes 10``, batch 64, n_critic 5, bf16) for
+     12 steps: 6 power-iteration launches per step, each over D's 12 weights
+     (``proj_embed`` [128, 10] last); that 12-weight kernel against its plain
+     version and bit-identical across two launches; float32 G and D card vs
+     CPU; the 12-weight launch's device time beside the 11-weight one, its
+     plain version and its bound; ``cli.sample`` and ``cli.evaluate`` with
+     ``--num-classes 10``
+
+The power iteration's ``launches`` in the kernels' record are those of
+phase 5's SNGAN run and phase 12's conditional SNGAN run.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -126,6 +144,7 @@ IMAGENET_WIDE_SHAPES = [(4608, 1024), (9216, 1024)]
 # 10,000 images each, 3072 bytes per image
 CIFAR_FILES, CIFAR_PER_FILE = [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"], 10_000
 CIFAR_STEPS, IMAGENET_STEPS, LOG_EVERY = 12, 12, 4
+ACGAN_STEPS, ACGAN_BATCH = 24, 100
 IMAGENET_STORE = 3_200  # 10 fused steps of 5 x 64 images: an epoch ends inside the run
 
 
@@ -320,61 +339,120 @@ def timed_calls(module, name: str, sink: list) -> None:
     setattr(module, name, wrapped)
 
 
+def resume_bit_equal(main_fn, args: list, tmp: str, name: str, kernels: dict) -> tuple:
+    """``main_fn`` (a CLI's ``main``) faulted at step 6 with a checkpoint
+    every 4, re-run to resume from step 4 to 12, and run uninterrupted for 12
+    steps in another directory: every leaf of the two final states must be
+    bit-equal. Returns (the uninterrupted state, its directory, the launches
+    of each module of ``kernels`` in the three runs)."""
+    import torch
+    from gan_lib_tensorflow_tpu_torch.train import CheckpointManager, to_checkpoint
+    run, straight_dir = os.path.join(tmp, name), os.path.join(tmp, name + "_straight")
+    args = args + ["--steps", "12", "--ckpt-every", "4", "--log-every", "4"]
+    counts = {k: [] for k in kernels}
+
+    def counted(fn):
+        for mod in kernels.values():
+            mod.launches = 0
+        try:
+            return fn()
+        finally:
+            torch.cuda.synchronize()
+            for k, mod in kernels.items():
+                counts[k].append(mod.launches)
+
+    def faulted():
+        try:
+            main_fn(args + ["--out-dir", run, "--fault-inject-step", "6"])
+        except RuntimeError as e:
+            check("fault injected at step 6" in str(e), f"{name}: unexpected error: {e}")
+            return
+        check(False, f"{name}: the injected fault did not raise")
+
+    counted(faulted)
+    check(CheckpointManager(os.path.join(run, "ckpt")).latest_step() == 4,
+          f"{name}: the step-4 checkpoint is not the latest after the fault")
+    resumed = counted(lambda: main_fn(args + ["--out-dir", run]))
+    straight = counted(lambda: main_fn(args + ["--out-dir", straight_dir]))
+    check(resumed.step == straight.step == 12, f"{name}: a run did not end at step 12")
+    got = dict(flat_items(to_checkpoint(resumed)))
+    want = dict(flat_items(to_checkpoint(straight)))
+    check(got.keys() == want.keys(), f"{name}: the resumed and uninterrupted states differ in keys")
+    differ = [k for k in want if not (torch.equal(got[k], want[k])
+                                      if isinstance(want[k], torch.Tensor)
+                                      else got[k] == want[k])]
+    check(not differ, f"{name}: {len(differ)} of {len(want)} leaves differ after the resume, "
+                      f"e.g. {differ[:5]}")
+    n_tensors = sum(isinstance(v, torch.Tensor) for v in want.values())
+    print(f"{name} resume: fault at step 6, resumed from step 4 to 12; all {len(want)} "
+          f"leaves ({n_tensors} tensors: G, D, Adam slots, noise generators and, where the "
+          f"run has them, EMA and lr schedules) bit-equal to the uninterrupted run (cuDNN "
+          f"deterministic); launches in 6, 8 and 12 steps: "
+          + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    return straight, straight_dir, counts
+
+
+def sample_grid(model_args: list, ckpt: str, tmp: str, n: int, rows: int) -> None:
+    """``cli.sample`` on the card: an ``n``-image grid of ``rows`` rows of
+    32x32 tiles, checked by its PNG header."""
+    from gan_lib_tensorflow_tpu_torch.cli import sample
+    png = os.path.join(tmp, "grid.png")
+    sample.main(model_args + ["--ckpt-dir", ckpt, "--out", png, "--n", str(n),
+                              "--device", "cuda"])
+    with open(png, "rb") as f:
+        head = f.read(24)
+    width, height = struct.unpack(">II", head[16:24])
+    cols = -(-n // rows)
+    check(head[:8] == b"\x89PNG\r\n\x1a\n" and head[12:16] == b"IHDR"
+          and (width, height) == (cols * 32, rows * 32),
+          f"sample grid header {head!r}, want a {cols * 32}x{rows * 32} PNG")
+    print(f"cli.sample: a {width}x{height} PNG ({rows}x{cols} tiles of 32x32), "
+          f"{os.path.getsize(png)} bytes")
+
+
+def sample_and_evaluate(card: str, model_args: list, ckpt: str, tmp: str, n: int,
+                        rows: int) -> dict:
+    """``sample_grid``, then ``cli.evaluate`` at 1000 samples with the
+    random-init InceptionV3 on the card; returns the eval record."""
+    from gan_lib_tensorflow_tpu_torch.cli import evaluate
+    sample_grid(model_args, ckpt, tmp, n, rows)
+    t0 = time.perf_counter()
+    rec = evaluate.main(model_args + ["--ckpt-dir", ckpt, "--n-samples", "1000",
+                                      "--n-real", "1000", "--data", "fake",
+                                      "--real-stats-npz", os.path.join(tmp, "real.npz"),
+                                      "--device", "cuda"])
+    check(all(math.isfinite(rec[k]) for k in ("inception_score", "fid"))
+          and rec["samples_evaluated"] == 1000 and rec["step"] == 12, f"eval record {rec}")
+    print(f"cli.evaluate: IS {rec['inception_score']!r}, FID {rec['fid']!r} at 1000 "
+          f"samples, random-init InceptionV3, {time.perf_counter() - t0:.1f} s with the "
+          f"host sqrtm  [{card}]")
+    return rec
+
+
 def checkpoint_resume_eval(card: str, tmp: str) -> None:
     """Phase 9, in the temporary directory ``tmp``."""
     import contextlib
     import io
 
     import torch
-    from gan_lib_tensorflow_tpu_torch.cli import evaluate, sample, train_pggan, train_sngan
+    from gan_lib_tensorflow_tpu_torch.cli import evaluate, train_pggan, train_sngan
     from gan_lib_tensorflow_tpu_torch.data import DeviceFakeImages
     from gan_lib_tensorflow_tpu_torch.eval import metrics
     from gan_lib_tensorflow_tpu_torch.eval.inception_v3 import InceptionV3Features
     from gan_lib_tensorflow_tpu_torch.ops import fadein as fd
     from gan_lib_tensorflow_tpu_torch.ops import power_iteration as pi
-    from gan_lib_tensorflow_tpu_torch.train import CheckpointManager, to_checkpoint
+    from gan_lib_tensorflow_tpu_torch.train import CheckpointManager
     from gan_lib_tensorflow_tpu_torch.train.pggan_loop import train_pggan_ladder
 
     # (a) SNGAN: fault at step 6, resume from the step-4 checkpoint to 12
-    run, straight_dir = os.path.join(tmp, "sngan"), os.path.join(tmp, "sngan_straight")
     sn_args = ["--data", "fake", "--device", "cuda", "--batch-size", str(BATCH),
                "--n-critic", str(N_CRITIC), "--ema-decay", "0.9999", "--compute-dtype",
-               "bf16", "--steps", "12", "--ckpt-every", "4", "--sample-every", "6",
-               "--log-every", "4"]
-    launches = []
-    pi.launches = 0
-    try:
-        train_sngan.main(sn_args + ["--out-dir", run, "--fault-inject-step", "6"])
-        check(False, "the injected fault did not raise")
-    except RuntimeError as e:
-        check("fault injected at step 6" in str(e), f"unexpected error: {e}")
-    launches.append(pi.launches)
-    check(CheckpointManager(os.path.join(run, "ckpt")).latest_step() == 4,
-          "the step-4 checkpoint is not the latest after the fault")
-    for out_dir in (run, straight_dir):
-        pi.launches = 0
-        state = train_sngan.main(sn_args + ["--out-dir", out_dir])
-        torch.cuda.synchronize()
-        launches.append(pi.launches)
-        if out_dir == run:
-            resumed = state
-    straight = state
-    check(resumed.step == straight.step == 12, "a run did not end at step 12")
+               "bf16", "--sample-every", "6"]
+    straight, run, counts = resume_bit_equal(train_sngan.main, sn_args, tmp, "SNGAN",
+                                             {"power_iteration": pi})
+    launches = counts["power_iteration"]
     check(launches == [6 * 6, 6 * 8, 6 * 12],
           f"power-iteration launches {launches} in 6, 8 and 12 steps, want 6 per step")
-    got = dict(flat_items(to_checkpoint(resumed)))
-    want = dict(flat_items(to_checkpoint(straight)))
-    check(got.keys() == want.keys(), "the resumed and uninterrupted states differ in keys")
-    differ = [k for k in want if not (torch.equal(got[k], want[k])
-                                      if isinstance(want[k], torch.Tensor)
-                                      else got[k] == want[k])]
-    check(not differ, f"{len(differ)} of {len(want)} leaves differ after the resume, "
-                      f"e.g. {differ[:5]}")
-    n_tensors = sum(isinstance(v, torch.Tensor) for v in want.values())
-    print(f"SNGAN resume: fault at step 6, resumed from step 4 to 12; all {len(want)} "
-          f"leaves ({n_tensors} tensors: G, D, EMA, Adam slots, lr schedules, noise "
-          f"generators) bit-equal to the uninterrupted run; power-iteration launches "
-          f"{launches[0]}, {launches[1]}, {launches[2]} in 6, 8, 12 steps (6 per step)")
 
     ckpt = CheckpointManager(os.path.join(run, "ckpt"))
     n_bytes = os.path.getsize(ckpt.path(12))
@@ -395,17 +473,7 @@ def checkpoint_resume_eval(card: str, tmp: str) -> None:
           f"(read + copy to the card) {', '.join(f'{t:.1f}' for t in restore_ms)} ms  [{card}]")
 
     # (b) the sample grid of that checkpoint
-    png = os.path.join(tmp, "samples.png")
-    sample.main(["--model", "sngan", "--ckpt-dir", os.path.join(run, "ckpt"),
-                 "--out", png, "--n", "64", "--device", "cuda"])
-    with open(png, "rb") as f:
-        head = f.read(24)
-    width, height = struct.unpack(">II", head[16:24])
-    check(head[:8] == b"\x89PNG\r\n\x1a\n" and head[12:16] == b"IHDR"
-          and (width, height) == (8 * 32, 8 * 32),
-          f"sample grid header {head!r}, want a 256x256 PNG (8x8 tiles of 32x32)")
-    print(f"cli.sample: {png} is a {width}x{height} PNG (8x8 tiles of 32x32), "
-          f"{os.path.getsize(png)} bytes")
+    sample_grid(["--model", "sngan"], os.path.join(run, "ckpt"), tmp, 64, 8)
 
     # (c) IS/FID through the full random-init InceptionV3, then from the cache
     passes, reals, fids = [], [], []
@@ -798,6 +866,160 @@ def imagenet128(card: str, tmp: str) -> None:
               f"{w_bytes / sub_ms / 1e9:.3f} TB/s of W read once  [{card}]")
 
 
+def acgan_and_conditional_sngan(card: str, tmp: str) -> int:
+    """Phase 12, in the temporary directory ``tmp``. Returns the
+    power-iteration launches of the conditional SNGAN's timed run."""
+    import torch
+    from gan_lib_tensorflow_tpu_torch.cli import train_acgan, train_sngan
+    from gan_lib_tensorflow_tpu_torch.models import acgan, sngan
+    from gan_lib_tensorflow_tpu_torch.ops import fadein as fd
+    from gan_lib_tensorflow_tpu_torch.ops import power_iteration as pi
+
+    kernels = {"power_iteration": pi, "fadein_blend": fd}
+
+    # (a) ACGAN at full width through its CLI: timed, then faulted and resumed
+    ac_args = ["--data", "fake", "--device", "cuda", "--batch-size", str(ACGAN_BATCH),
+               "--compute-dtype", "bf16", "--adversarial", "bce", "--aux-weight", "1.0",
+               "--sample-every", "1000"]
+    timed_dir = os.path.join(tmp, "acgan_timed")
+    pi.launches = fd.launches = 0  # count this path's launches only
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st = train_acgan.main(ac_args + ["--steps", str(ACGAN_STEPS), "--log-every", str(LOG_EVERY),
+                                     "--ckpt-every", "1000", "--out-dir", timed_dir])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ac_launches = (pi.launches, fd.launches)
+    check(st.step == ACGAN_STEPS and ac_launches == (0, 0),
+          f"ACGAN: (power iteration, fade-in) launches {ac_launches} in {st.step} steps, want 0")
+    sps = last_sec_per_step(timed_dir)
+    g, d = st.g, st.d
+    print(f"ACGAN CIFAR-10, full width (G base 384, z 110; D base 64, dropout 0.3), batch "
+          f"{ACGAN_BATCH}, bf16, bce, aux 1.0: images/s/GPU {ACGAN_BATCH / sps:.1f}  ms/step "
+          f"{1e3 * sps:.2f} (steps {ACGAN_STEPS - LOG_EVERY + 1}-{ACGAN_STEPS})  peak memory "
+          f"{peak / 2**20:.0f} MiB  launches: power iteration {ac_launches[0]}, fade-in "
+          f"{ac_launches[1]}; {run_s:.1f} s for the run with its build  [{card}]")
+    del st
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        _, ac_dir, counts = resume_bit_equal(train_acgan.main, ac_args, tmp, "ACGAN", kernels)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(all(v == [0, 0, 0] for v in counts.values()), f"ACGAN launched a kernel: {counts}")
+
+    # float32 G and D, card vs CPU, batch 2, the same dropout masks on both
+    g32, d32 = acgan.ACGANGenerator(), acgan.ACGANDiscriminator()
+    g32.load_state_dict(g.state_dict())
+    d32.load_state_dict(d.state_dict())
+    gen = torch.Generator().manual_seed(0)
+    z, lab = torch.randn(2, 110, generator=gen), torch.tensor([3, 8])
+    masks = d32.draw_masks(2, gen)
+    with torch.no_grad():
+        imgs_cpu = g32(z, lab, train=False)
+        adv_cpu, cls_cpu = d32(imgs_cpu, masks)
+        imgs = g32.cuda()(z.cuda(), lab.cuda(), train=False)
+        adv, cls = d32.cuda()(imgs, [m.cuda() for m in masks])
+    check(tuple(imgs.shape) == (2, 32, 32, 3) and bool(torch.isfinite(imgs).all())
+          and bool(torch.isfinite(cls).all()), "ACGAN G/D output not finite")
+    for a, b in ((imgs, imgs_cpu), (adv, adv_cpu), (cls, cls_cpu)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-3)
+    print(f"float32 ACGAN G and D (dropout masks injected) at full width on the card agree "
+          f"with the CPU (rtol 1e-3, atol 1e-3): max abs err images "
+          f"{float((imgs.cpu() - imgs_cpu).abs().max()):.3e}, logits "
+          f"{max(float((adv.cpu() - adv_cpu).abs().max()), float((cls.cpu() - cls_cpu).abs().max())):.3e}")
+    del g, d, g32, d32
+    sample_and_evaluate(card, ["--model", "acgan"], os.path.join(ac_dir, "ckpt"),
+                        tmp, 100, 10)
+
+    # (b) the conditional CIFAR SNGAN at full width: 12 SN weights per launch
+    sn_args = ["--data", "fake", "--device", "cuda", "--batch-size", str(BATCH),
+               "--n-critic", str(N_CRITIC), "--compute-dtype", "bf16", "--num-classes", "10",
+               "--sample-every", "1000", "--ckpt-every", "1000"]
+    run = os.path.join(tmp, "sngan_cond")
+    pi.launches = fd.launches = 0  # count this path's launches only
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st = train_sngan.main(sn_args + ["--steps", str(CIFAR_STEPS), "--log-every", str(LOG_EVERY),
+                                     "--out-dir", run])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    cond_launches = pi.launches
+    d = st.d
+    check(st.step == CIFAR_STEPS and cond_launches == (N_CRITIC + 1) * CIFAR_STEPS
+          and fd.launches == 0,
+          f"conditional SNGAN: power-iteration launches {cond_launches} in {st.step} steps, "
+          f"want 6 per step")
+    check(len(d.sn_layers) == 12 and len(d._sn_table.ms) == 12
+          and d.sn_layers[-1] is d.proj_embed,
+          f"the conditional D's kernel table holds {len(d._sn_table.ms)} weights, want 12")
+    sps = last_sec_per_step(run)
+    dims = [(m.weight[0].numel(), m.weight.shape[0]) for m in d.sn_layers]
+    print(f"conditional SNGAN CIFAR-10 (10 classes), full width, batch {BATCH}, n_critic "
+          f"{N_CRITIC}, bf16: images/s/GPU {N_CRITIC * BATCH / sps:.1f}  ms/step "
+          f"{1e3 * sps:.2f} (steps {CIFAR_STEPS - LOG_EVERY + 1}-{CIFAR_STEPS})  peak memory "
+          f"{peak / 2**20:.0f} MiB  power-iteration launches {cond_launches} in {CIFAR_STEPS} "
+          f"steps, each over D's 12 weights (proj_embed {list(d.proj_embed.weight.shape)}); "
+          f"{run_s:.1f} s "
+          f"for the run  [{card}]")
+
+    # the 12-weight kernel against its plain version, and two launches
+    err = compare_kernel(pi, torch, dims, 5)
+    ws = [m.weight.detach() for m in d.sn_layers]
+    us = [m.u.detach().clone() for m in d.sn_layers]
+    first, second = pi.launch(ws, us), pi.launch(ws, us)
+    check(all(torch.equal(x, y) for x, y in zip(first, second)),
+          "two 12-weight launches on the same inputs differ")
+    print(f"batched_power_iteration at the conditional D's 12 weights "
+          f"({sum(m * k for m, k in dims)} values): sigma/u'/v/grad agree with the plain "
+          f"version (rtol 1e-4, TF32 off), max abs err {err:.3e}; two launches bit-identical")
+
+    # float32 G and D, card vs CPU (the plain power iteration on the CPU)
+    g32 = sngan.cifar_generator(num_classes=10)
+    d32 = sngan.cifar_discriminator(num_classes=10)
+    g32.load_state_dict(st.g.state_dict())
+    d32.load_state_dict(d.state_dict())
+    gen = torch.Generator().manual_seed(0)
+    z, lab = torch.randn(4, 128, generator=gen), torch.tensor([0, 3, 7, 9])
+    with torch.no_grad():
+        imgs_cpu = g32(z, lab, train=False)
+        logits_cpu = d32(imgs_cpu, lab)
+        imgs = g32.cuda()(z.cuda(), lab.cuda(), train=False)
+        logits = d32.cuda()(imgs, lab.cuda())
+    check(bool(torch.isfinite(imgs).all()) and bool(torch.isfinite(logits).all()),
+          "conditional SNGAN G/D output not finite")
+    torch.testing.assert_close(imgs.cpu(), imgs_cpu, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(logits.cpu(), logits_cpu, rtol=1e-3, atol=1e-3)
+    print(f"float32 conditional SNGAN G and D at full width on the card agree with the CPU "
+          f"(rtol 1e-3, atol 1e-3): max abs err images "
+          f"{float((imgs.cpu() - imgs_cpu).abs().max()):.3e}, logits "
+          f"{float((logits.cpu() - logits_cpu).abs().max()):.3e}")
+    del g32, d32
+
+    # the 12-weight launch by device time, beside the 11-weight one and the bound
+    t11, t12 = pi.PowerIterationTable(), pi.PowerIterationTable()
+    t = timed_in_turns({"12": lambda: pi.launch(ws, us, table=t12),
+                        "11": lambda: pi.launch(ws[:11], us[:11], table=t11),
+                        "plain": lambda: pi.plain_power_iteration(ws, us)}, 200)
+    ms_, ks = [m for m, _ in dims], [k for _, k in dims]
+    n_bytes = 4 * (sum(m * k for m, k in dims) + sum(ks) + len(ws) + sum(ks) + sum(ms_))
+    n_flops = sum(4 * m * k for m, k in dims)
+    bound_ms = 1e3 * max(n_bytes / PEAK_BYTES_PER_S, n_flops / PEAK_FP32_FLOPS)
+    print(f"batched_power_iteration, conditional CIFAR D (12 weights): kernel "
+          f"{1e3 * t['12']:.2f} us, the first 11 alone {1e3 * t['11']:.2f} us, plain "
+          f"{1e3 * t['plain']:.2f} us, bound {1e3 * bound_ms:.3f} us (bytes: {n_bytes} B at "
+          f"3.35 TB/s; {n_flops} flop); {N_CRITIC + 1} launches per step "
+          f"{(N_CRITIC + 1) * 1e3 * t['12']:.1f} us of {1e3 * sps:.2f} ms  [{card}]")
+    del st, d, ws, us
+    sample_and_evaluate(card, ["--model", "sngan", "--num-classes", "10"],
+                        os.path.join(run, "ckpt"), tmp, 64, 8)
+    return cond_launches
+
+
 def main() -> None:
     import torch
 
@@ -1106,12 +1328,21 @@ def main() -> None:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 11: {time.perf_counter() - t11:.1f} s  [{card}]")
 
+    phase("12 ACGAN and the conditional CIFAR SNGAN at full width")
+    t12 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        cond_launches = acgan_and_conditional_sngan(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 12: {time.perf_counter() - t12:.1f} s  [{card}]")
+
     print(json.dumps({"kernels": [{
         "name": "batched_power_iteration",
         "route": "cuda",
         "source": "gan_lib_tensorflow_tpu_torch/csrc/power_iteration.cu",
         "replaces": "gan_lib_tensorflow_tpu/ops/pallas_kernels.py:63",
-        "launches": main_launches,
+        "launches": main_launches + cond_launches,
         "max_abs_err": err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

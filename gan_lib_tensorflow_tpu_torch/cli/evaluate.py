@@ -1,8 +1,9 @@
-"""IS/FID evaluation entry point (port of the ``--model sngan`` and
-``--model imagenet`` branches of ``gan_lib_tensorflow_tpu/cli/evaluate.py``):
-restore the newest checkpoint, generate ``--n-samples`` EMA samples (the
-SNGAN-projection G cycles its classes), IS over 10 splits and FID against
-the real moments; prints one JSON line.
+"""IS/FID evaluation entry point (port of the ``--model sngan``,
+``--model imagenet`` and ``--model acgan`` branches of
+``gan_lib_tensorflow_tpu/cli/evaluate.py``): restore the newest checkpoint,
+generate ``--n-samples`` samples (EMA parameters when the checkpoint has
+them; a conditional G cycles its classes), IS over 10 splits and FID
+against the real moments; prints one JSON line.
 
 Usage:
   python -m gan_lib_tensorflow_tpu_torch.cli.evaluate --model sngan \\
@@ -10,6 +11,8 @@ Usage:
       [--inception-weights inception_v3.npz] [--real-stats-npz stats.npz]
   python -m gan_lib_tensorflow_tpu_torch.cli.evaluate --model sngan_imagenet \\
       --ckpt-dir runs/imagenet/ckpt --data runs/imagenet128_store
+  python -m gan_lib_tensorflow_tpu_torch.cli.evaluate --model acgan \\
+      --ckpt-dir runs/acgan/ckpt --n-samples 10000
 
 Without --inception-weights a seed-fixed random-init InceptionV3 is used:
 comparisons across checkpoints of one run hold, absolute values are not
@@ -31,14 +34,13 @@ import torch
 from .. import data, resolve_device
 from ..eval import compute_statistics, evaluate_generator
 from ..eval.inception_v3 import InceptionV3Features
-from ..models import sngan
+from ..models import acgan, sngan
 from ..parallel import prefetch_to_device
 from ..train import CheckpointManager, eval_state_from_raw
 
 # the reference's other families, and the ROADMAP.md item that ports each
 _NOT_PORTED = {
-    "acgan": "Queue 1 item 6 (ACGAN)",
-    "pggan": "Queue 1 item 8 (PGGAN's SWD and MS-SSIM)",
+    "pggan": "Queue 1 item 3(a) (PGGAN's SWD and MS-SSIM)",
 }
 
 
@@ -46,7 +48,7 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--model", default="sngan",
-                   choices=["sngan", "imagenet", "sngan_imagenet", *_NOT_PORTED])
+                   choices=["sngan", "imagenet", "sngan_imagenet", "acgan", *_NOT_PORTED])
     p.add_argument("--ckpt-dir", required=True)
     p.add_argument("--n-samples", type=int, default=50_000)
     p.add_argument("--batch-size", type=int, default=100)
@@ -61,7 +63,8 @@ def parse_args(argv=None):
                    help="cache file for real moments: saved on first run, "
                         "loaded (real pass skipped) thereafter")
     p.add_argument("--num-classes", type=int, default=0,
-                   help="imagenet: classes of the conditional G (0 = 1000)")
+                   help="sngan: classes of the conditional G (0 = unconditional); "
+                        "imagenet: its classes (0 = 1000)")
     p.add_argument("--width-mul", type=float, default=1.0,
                    help="imagenet: the channel-width multiplier it was trained with")
     p.add_argument("--seed", type=int, default=0)
@@ -172,18 +175,19 @@ def eval_is_fid(args) -> dict:
         raise FileNotFoundError(f"no checkpoint under {args.ckpt_dir}")
     state = eval_state_from_raw(raw)
     net = InceptionV3Features(params_npz=args.inception_weights, device=dev)
+    # a conditional G's samples cycle its classes (reference evaluate.py:180-196)
     if args.model == "imagenet":
-        # class-conditional samples cycling the label set (reference
-        # evaluate.py:185-190)
         g = sngan.imagenet128_generator(num_classes=args.num_classes or 1000,
                                         width_mul=args.width_mul)
-        image_size = 128
+        image_size, make_sampler = 128, sngan.make_sampler
+    elif args.model == "acgan":
+        g, image_size, make_sampler = acgan.ACGANGenerator(), 32, acgan.make_sampler
     else:
-        g = sngan.cifar_generator()
-        image_size = 32
+        g = sngan.cifar_generator(num_classes=args.num_classes)
+        image_size, make_sampler = 32, sngan.make_sampler
     g.load_state_dict(state.g)
     g.to(dev)
-    sampler = sngan.make_sampler(g)
+    sampler = make_sampler(g)
     real_stats, real_source = real_moments(args, net, image_size)
 
     def sample_batch(gen: torch.Generator) -> torch.Tensor:

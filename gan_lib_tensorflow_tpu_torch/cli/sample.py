@@ -9,9 +9,11 @@ Usage:
       --ckpt-dir runs/pggan/64x64_stabilize/ckpt --resolution 64
   python -m gan_lib_tensorflow_tpu_torch.cli.sample --model sngan_imagenet \\
       --ckpt-dir runs/imagenet/ckpt --n 36
+  python -m gan_lib_tensorflow_tpu_torch.cli.sample --model acgan \\
+      --ckpt-dir runs/acgan/ckpt --n 100
 
-A conditional G (``sngan_imagenet``) samples the classes ``arange(n) %
-num_classes``.
+A conditional G (``sngan_imagenet``, ``acgan``, ``sngan --num-classes N``)
+samples the classes ``arange(n) % num_classes``.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import sys
 import torch
 
 from .. import resolve_device
-from ..models import pggan, sngan
+from ..models import acgan, pggan, sngan
 from ..train import CheckpointManager, eval_state_from_raw
 from ..utils import save_image_grid
 
@@ -31,7 +33,7 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--model", required=True,
-                   choices=["sngan", "sngan_imagenet", "imagenet", "pggan"])
+                   choices=["sngan", "sngan_imagenet", "imagenet", "acgan", "pggan"])
     p.add_argument("--ckpt-dir", required=True)
     p.add_argument("--out", default="samples.png")
     p.add_argument("--n", type=int, default=64)
@@ -40,7 +42,8 @@ def parse_args(argv=None):
     p.add_argument("--width-mul", type=float, default=1.0,
                    help="pggan/sngan_imagenet channel-width multiplier")
     p.add_argument("--num-classes", type=int, default=0,
-                   help="sngan_imagenet: classes of the conditional G (0 = 1000)")
+                   help="sngan: classes of the conditional G (0 = unconditional); "
+                        "sngan_imagenet: its classes (0 = 1000)")
     p.add_argument("--device", default="cuda",
                    help="torch device; without CUDA only 'cpu' runs")
     return p.parse_args(argv)
@@ -51,7 +54,9 @@ def build_generator(args, g_state: dict):
     checkpoint of a transition phase carries the fade-in's second toRGB; its
     first Dense (``[out, z_dim]``) gives the latent width."""
     if args.model == "sngan":
-        return sngan.make_sampler, sngan.cifar_generator()
+        return sngan.make_sampler, sngan.cifar_generator(num_classes=args.num_classes)
+    if args.model == "acgan":
+        return acgan.make_sampler, acgan.ACGANGenerator()
     if args.model in ("sngan_imagenet", "imagenet"):
         return sngan.make_sampler, sngan.imagenet128_generator(
             num_classes=args.num_classes or 1000, width_mul=args.width_mul)

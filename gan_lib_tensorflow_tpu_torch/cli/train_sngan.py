@@ -1,12 +1,15 @@
 """SNGAN CIFAR-10 training entry point (port of
 ``gan_lib_tensorflow_tpu/cli/train_sngan.py``): hinge, Adam(2e-4, 0, 0.9),
 n_critic 5, batch 64, linear lr decay, EMA of G; checkpoints and auto-resume
-under ``--out-dir``, sample grids, periodic IS/FID.
+under ``--out-dir``, sample grids, periodic IS/FID. ``--num-classes N`` (> 0)
+trains the conditional variant: conditional BN in G, a projection D with 12
+spectral-norm weights, real labels from the data source.
 
 Usage: python -m gan_lib_tensorflow_tpu_torch.cli.train_sngan --data fake --steps 20 \
            --out-dir runs/sngan [--ckpt-every 5000] [--eval-every 10000]
        python -m gan_lib_tensorflow_tpu_torch.cli.train_sngan \
            --data data/cifar-10-batches-py [--device-cache auto|on|off]
+       python -m gan_lib_tensorflow_tpu_torch.cli.train_sngan --data fake --num-classes 10
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ def parse_args(argv=None):
     p.add_argument("--n-critic", type=int, default=5)
     p.add_argument("--beta1", type=float, default=0.0)
     p.add_argument("--beta2", type=float, default=0.9)
+    p.add_argument("--num-classes", type=int, default=0,
+                   help=">0 trains the conditional (projection) variant")
     p.add_argument("--ema-decay", type=float, default=0.9999,
                    help="EMA of G params for sampling (0 disables)")
     p.add_argument("--lr-decay-steps", type=int, default=0,
@@ -56,8 +61,8 @@ def build(args):
     optax schedule does: D, which updates n_critic times per step, reaches
     lr 0 after steps / n_critic G steps."""
     dtype = common.compute_dtype(args)
-    g = sngan.cifar_generator(compute_dtype=dtype)
-    d = sngan.cifar_discriminator(compute_dtype=dtype)
+    g = sngan.cifar_generator(compute_dtype=dtype, num_classes=args.num_classes)
+    d = sngan.cifar_discriminator(compute_dtype=dtype, num_classes=args.num_classes)
     spec = sngan.make_sngan_spec(g, d, n_critic=args.n_critic,
                                  ema_decay=args.ema_decay)
     horizon = args.lr_decay_steps or args.steps

@@ -17,6 +17,11 @@ same holds for the input of PGGAN D's ``dense_4``: the reference flattens
 its NHWC map, and the port flattens an NHWC view of its NCHW map, so the
 rows of that kernel keep their order too. PGGAN states have no ``'sn'`` or
 ``'batch_stats'`` collections; their fade-in ``alpha`` is carried over.
+ACGAN states take the same rules: the ``deconv*`` kernels are HWIO ``[k, k,
+in, out]`` like any conv's and land OIHW ``[out, in, k, k]``, which is how
+``ConvTranspose`` stores them; the ``head_*`` Dense kernels read the NHWC
+flatten in both packages; G's ``bn0``/``bn1`` bring their ``batch_stats``;
+there is no ``'sn'`` collection and no EMA.
 
 The input can be the state object itself after ``tree_map(np.asarray, ...)``
 or a mapping of its fields; optax states are read by their ``count``, ``mu``

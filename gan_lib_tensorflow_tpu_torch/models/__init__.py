@@ -1,3 +1,3 @@
-from . import pggan, sngan
+from . import acgan, pggan, sngan
 
-__all__ = ["pggan", "sngan"]
+__all__ = ["acgan", "pggan", "sngan"]

@@ -218,7 +218,7 @@ def make_pggan_spec(g_model: PGGANGenerator, d_model: PGGANDiscriminator,
         return fake.reshape(n_micro, n, *fake.shape[1:])
 
     def d_loss(real, fake, alpha: float, noise: Optional[torch.Generator],
-               u_gp: Optional[torch.Tensor], labels=None):
+               u_gp: Optional[torch.Tensor], labels=None, masks=None):
         real_logits = d_model(real, alpha)
         fake_logits = d_model(fake, alpha)
         if u_gp is None:
@@ -230,8 +230,8 @@ def make_pggan_spec(g_model: PGGANGenerator, d_model: PGGANDiscriminator,
         return loss, {"d_loss": loss.detach(), "wdist": -wd.detach(),
                       "gp": gp.detach()}
 
-    def g_loss(z: torch.Tensor, alpha: float, labels=None) -> torch.Tensor:
-        return wgan_g_loss(d_model(g_model(z, alpha), alpha))
+    def g_loss(z: torch.Tensor, alpha: float, labels=None, noise=None, masks=None):
+        return wgan_g_loss(d_model(g_model(z, alpha), alpha)), {}
 
     return GANSpec(prepare_fakes=prepare_fakes, d_loss=d_loss, g_loss=g_loss,
                    n_critic=1, ema_decay=ema_decay, z_dim=g_model.z_dim)

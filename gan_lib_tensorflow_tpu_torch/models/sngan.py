@@ -1,5 +1,6 @@
 """SNGAN ResNet family (port of ``gan_lib_tensorflow_tpu/models/sngan.py``):
-CIFAR-10, unconditional, and SNGAN-projection ImageNet-128, conditional.
+CIFAR-10, unconditional or conditional on 10 classes, and SNGAN-projection
+ImageNet-128, conditional.
 
 CIFAR-10:
   G: z in R^128 -> Dense -> 4x4x256 -> 3 x (up-ResBlock 256) -> BN -> ReLU ->
@@ -12,8 +13,8 @@ ImageNet-128 (Miyato & Koyama 2018):
   D: OptimizedBlock(64) -> down-blocks (128, 256, 512, 1024) ->
      ResBlock(1024) -> ReLU -> sum-pool phi -> SN-Dense(1) + <SN-embed(y), phi>
 
-D's spectral-norm weights (11 for CIFAR; 19 for ImageNet-128, the projection
-embedding last) get their sigmas from one launch of the batched
+D's spectral-norm weights (11 for CIFAR, 12 with its projection embedding; 19
+for ImageNet-128, the projection embedding last) get their sigmas from one launch of the batched
 power-iteration kernel per forward (``ops/power_iteration.py``).
 """
 
@@ -122,12 +123,15 @@ class ResNetDiscriminator(nn.Module):
         return out
 
 
-def cifar_generator(compute_dtype=None) -> ResNetGenerator:
-    return ResNetGenerator(compute_dtype=compute_dtype)
+def cifar_generator(compute_dtype=None, num_classes: int = 0) -> ResNetGenerator:
+    """``num_classes`` > 0: the conditional CIFAR G (conditional BN)."""
+    return ResNetGenerator(num_classes=num_classes, compute_dtype=compute_dtype)
 
 
-def cifar_discriminator(compute_dtype=None) -> ResNetDiscriminator:
-    return ResNetDiscriminator(compute_dtype=compute_dtype)
+def cifar_discriminator(compute_dtype=None, num_classes: int = 0) -> ResNetDiscriminator:
+    """``num_classes`` > 0: the projection D, 12 SN weights with
+    ``proj_embed`` ``[128, num_classes]`` last."""
+    return ResNetDiscriminator(num_classes=num_classes, compute_dtype=compute_dtype)
 
 
 def _scale_channels(chs, width_mul: float):
@@ -158,7 +162,7 @@ def make_sngan_spec(g_model: ResNetGenerator, d_model: ResNetDiscriminator,
     Conditional (G's ``num_classes`` > 0): the real labels come from the
     batch, the fakes' classes from the step's draws (uniform per critic
     substep and for the G update). The fade-in ``alpha``, the noise
-    generator and ``u_gp`` are unused."""
+    generators, ``u_gp`` and ``masks`` are unused."""
     conditional = g_model.num_classes > 0
 
     def prepare_fakes(z_stack: torch.Tensor, alpha: float,
@@ -173,7 +177,7 @@ def make_sngan_spec(g_model: ResNetGenerator, d_model: ResNetDiscriminator,
         return fake.reshape(n_micro, n, *fake.shape[1:])
 
     def d_loss(real: torch.Tensor, fake: torch.Tensor, alpha: float, noise, u_gp,
-               labels=None):
+               labels=None, masks=None):
         # one D pass over [real; fake]: exactly one u advance per substep
         n = real.shape[0]
         both = torch.cat(labels) if conditional else None
@@ -184,10 +188,10 @@ def make_sngan_spec(g_model: ResNetGenerator, d_model: ResNetDiscriminator,
                       "d_real": real_logits.detach().mean(),
                       "d_fake": fake_logits.detach().mean()}
 
-    def g_loss(z: torch.Tensor, alpha: float,
-               labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def g_loss(z: torch.Tensor, alpha: float, labels: Optional[torch.Tensor] = None,
+               noise=None, masks=None):
         fake = g_model(z, labels, train=True)
-        return hinge_g_loss(d_model(fake, labels, update_sn=False))
+        return hinge_g_loss(d_model(fake, labels, update_sn=False)), {}
 
     return GANSpec(prepare_fakes=prepare_fakes, d_loss=d_loss, g_loss=g_loss,
                    n_critic=n_critic, ema_decay=ema_decay, z_dim=g_model.z_dim,

@@ -11,7 +11,8 @@ K, unflipped, padded by (pad_a, pad_b) = (k_eff - 1 - p) on both sides for
 the (k+1)-tap kernel (2 for 4x4, 1 for 2x2). ``conv_transpose2d`` correlates
 with the spatially flipped kernel laid out ``[in, out, kh, kw]``, so the port
 hands it ``K`` flipped and transposed, with ``padding = k - 1 - pad_a``: the
-output is exactly ``2H x 2W``.
+output is exactly ``2H x 2W``. ``conv_transpose_same`` holds that rule for
+any kernel and stride; ``ConvTranspose`` (ACGAN) uses it too.
 """
 
 from __future__ import annotations
@@ -30,21 +31,42 @@ def fuse_up2_kernel(w: torch.Tensor) -> torch.Tensor:
             + F.pad(w, (1, 0, 0, 1)) + F.pad(w, (0, 1, 0, 1)))
 
 
+def transpose_same_pads(kernel: int, stride: int):
+    """(pad_a, pad_b) that ``lax.conv_transpose(..., "SAME")`` puts around
+    the ``stride``-dilated input (k 5, s 2: (3, 2); k 4, s 2: (2, 2))."""
+    pad_len = kernel + stride - 2
+    pad_a = kernel - 1 if stride > kernel - 1 else -(-pad_len // 2)
+    return pad_a, pad_len - pad_a
+
+
+def conv_transpose_same(x: torch.Tensor, K: torch.Tensor, stride: int,
+                        compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``lax.conv_transpose(x, K, (s, s), "SAME")`` (no kernel flip) for
+    NCHW ``x`` and an OIHW square ``K``: output ``[N, O, sH, sW]``.
+
+    ``conv_transpose2d`` pads the dilated input by ``k - 1 - padding`` before
+    and that plus ``output_padding`` after, so ``padding = k - 1 - pad_a``
+    gives XLA's pad before; a larger pad after is made up by
+    ``output_padding``, a smaller one by cropping the extra rows and columns
+    at the end (they lie past the last SAME position)."""
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+        K = K.to(compute_dtype)
+    k = K.shape[-1]
+    pad_a, pad_b = transpose_same_pads(k, stride)
+    extra = max(pad_b - pad_a, 0)
+    y = F.conv_transpose2d(x, K.flip(2, 3).transpose(0, 1), stride=stride,
+                           padding=k - 1 - pad_a, output_padding=extra)
+    h, w = stride * x.shape[-2], stride * x.shape[-1]
+    return y if y.shape[-2:] == (h, w) else y[..., :h, :w]
+
+
 def upsample2x_conv(x: torch.Tensor, w: torch.Tensor,
                     compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """conv(nearest_up2(x), w, SAME) without the upsampled activation.
 
     x: NCHW, w: OIHW (square, odd k). Output ``[N, O, 2H, 2W]``."""
-    K = fuse_up2_kernel(w)
-    if compute_dtype is not None:
-        x = x.to(compute_dtype)
-        K = K.to(compute_dtype)
-    kk = K.shape[-1]
-    # XLA SAME transpose padding for stride 2: pad_a = ceil(k/2) when
-    # k > 3 else k - 1; both come to k - 1 - pad_a = (k - 2) // 2 here
-    pad_a = -(-kk // 2) if 2 <= kk - 1 else kk - 1
-    return F.conv_transpose2d(x, K.flip(2, 3).transpose(0, 1), stride=2,
-                              padding=kk - 1 - pad_a)
+    return conv_transpose_same(x, fuse_up2_kernel(w), 2, compute_dtype)
 
 
 def fuse_down2_kernel(w: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,11 @@
 """Parameterized layers (port of ``gan_lib_tensorflow_tpu/ops/layers.py``),
-the ones on the SNGAN, SNGAN-projection and PGGAN paths: ``Dense``,
-``Conv``, ``UpsampleConv``, ``DownsampleConv``, ``Embedding`` and the resize
-helpers.
+the ones on the SNGAN, SNGAN-projection, PGGAN and ACGAN paths: ``Dense``,
+``Conv``, ``ConvTranspose``, ``UpsampleConv``, ``DownsampleConv``,
+``Embedding``, ``dropout`` and the resize helpers.
 
-Activations are NCHW; conv weights OIHW, Dense weights ``[out, in]`` and
-embedding tables ``[features, num_embeddings]``, all float32.
+Activations are NCHW; conv and transposed-conv weights OIHW (O = the
+layer's output features), Dense weights ``[out, in]`` and embedding tables
+``[features, num_embeddings]``, all float32.
 ``compute_dtype`` casts the activation and the (spectrally
 normalized) weight at the conv/matmul boundary, as the reference does.
 
@@ -31,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import initializers
-from .fused import conv_downscale2x, upsample2x_conv
+from .fused import conv_downscale2x, conv_transpose_same, upsample2x_conv
 from .power_iteration import batched_power_iteration
 
 
@@ -104,23 +105,69 @@ class Dense(_Layer):
         return self.add_bias(y)
 
 
+def same_pads(size: int, kernel: int, stride: int):
+    """XLA's (and TF's) ``'SAME'`` padding of one spatial dim: the output
+    has ``ceil(size / stride)`` positions, and the total padding that needs
+    is split with the odd pixel after (stride 2, kernel 3 on 32 pads (0, 1))."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
 class Conv(_Layer):
-    """Stride-1 conv with an odd square kernel and TF-SAME padding (which is
-    symmetric there; the asymmetric stride-2 case is not ported yet)."""
+    """2-D conv with a square kernel of any size, ``stride`` and
+    ``padding``: ``"SAME"`` (XLA's rule, asymmetric where the total is odd),
+    ``"VALID"``, or explicit ``((top, bottom), (left, right))``. A
+    symmetric padding goes to ``conv2d`` itself; an asymmetric one is
+    applied with ``F.pad`` first."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
                  spectral_norm: bool = False,
                  compute_dtype: Optional[torch.dtype] = None,
-                 equalized: bool = False, gain: float = math.sqrt(2.0)):
-        if kernel_size % 2 != 1:
-            raise ValueError(f"Conv takes odd kernel sizes, got {kernel_size}")
+                 equalized: bool = False, gain: float = math.sqrt(2.0),
+                 stride: int = 1, padding="SAME"):
+        if isinstance(padding, str) and padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding must be SAME, VALID or pairs, got {padding!r}")
         super().__init__((features, in_channels, kernel_size, kernel_size),
                          spectral_norm, compute_dtype, equalized, gain)
+        self.stride, self.padding = stride, padding
+
+    def pads(self, h: int, w: int):
+        """((top, bottom), (left, right)) for an ``h`` x ``w`` input."""
+        if self.padding == "SAME":
+            k = self.weight.shape[-1]
+            return same_pads(h, k, self.stride), same_pads(w, k, self.stride)
+        if self.padding == "VALID":
+            return (0, 0), (0, 0)
+        return tuple(tuple(p) for p in self.padding)
 
     def forward(self, x, sigma=None, update_sn: bool = False):
         w = self.kernel(sigma, update_sn)
-        y = F.conv2d(_cast(x, self.compute_dtype), _cast(w, self.compute_dtype),
-                     padding=w.shape[-1] // 2)
+        (top, bottom), (left, right) = self.pads(x.shape[-2], x.shape[-1])
+        x = _cast(x, self.compute_dtype)
+        if top == bottom and left == right:
+            pad = (top, left)
+        else:
+            x, pad = F.pad(x, (left, right, top, bottom)), 0
+        y = F.conv2d(x, _cast(w, self.compute_dtype), stride=self.stride, padding=pad)
+        return self.add_bias(y)
+
+
+class ConvTranspose(_Layer):
+    """2-D transposed conv with XLA's ``'SAME'`` padding (reference
+    ``layers.py:138-185``: ``lax.conv_transpose``, no kernel flip): the
+    output is ``stride`` times the input. The weight is stored OIHW like
+    ``Conv``'s (the reference's HWIO kernel by the converter's one rule);
+    ``ops/fused.py:conv_transpose_same`` does the padding."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int = 5,
+                 stride: int = 2, compute_dtype: Optional[torch.dtype] = None):
+        super().__init__((features, in_channels, kernel_size, kernel_size),
+                         False, compute_dtype)
+        self.stride = stride
+
+    def forward(self, x):
+        y = conv_transpose_same(x, self.kernel(), self.stride, self.compute_dtype)
         return self.add_bias(y)
 
 
@@ -213,6 +260,15 @@ class Embedding(nn.Module):
                 sigma = batched_power_iteration([w], [self.u], update_sn)[0]
             w = w / sigma
         return w.t()[labels.long()]
+
+
+def dropout(x: torch.Tensor, rate: float, mask: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.Dropout`` in training: ``where(mask, x / keep, 0)`` with
+    ``keep = 1 - rate`` rounded to ``x``'s dtype first, as JAX rounds the
+    Python scalar (bf16: 0.69921875). ``mask`` is the bool keep mask, shaped
+    and laid out like ``x``."""
+    keep = float(torch.tensor(1.0 - rate, dtype=x.dtype))
+    return torch.where(mask, x / keep, 0.0)
 
 
 def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:

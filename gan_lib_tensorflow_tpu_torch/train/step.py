@@ -11,7 +11,7 @@ pure function, the step updates the state in place (parameters, Adam slots,
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -26,12 +26,15 @@ class GANSpec:
 
     prepare_fakes(z_stack [n_critic, B, z_dim], alpha, labels [n_critic, B])
         -> fakes [n_critic, B, ...]
-    d_loss(real, fake, alpha, noise, u_gp, labels) -> (loss, metrics):
+    d_loss(real, fake, alpha, noise, u_gp, labels, masks) -> (loss, metrics):
         ``noise`` is the generator of the critic's own draws (the
         reference's per-substep rng), ``u_gp`` the gradient penalty's
         interpolation weights ``[B, 1, 1, 1]`` when the caller hands them
-        in, else None; ``labels`` is ``(real_labels, fake_labels)``
-    g_loss(z, alpha, labels [B]) -> loss
+        in, else None; ``labels`` is ``(real_labels, fake_labels)``;
+        ``masks`` D's dropout keep masks when the caller hands them in
+        (else None: a family with dropout draws them from ``noise``)
+    g_loss(z, alpha, labels [B], noise, masks) -> (loss, metrics): ``noise``
+        is the G update's generator, ``masks`` as for ``d_loss``
     """
 
     prepare_fakes: Callable
@@ -45,7 +48,8 @@ class GANSpec:
 
 def make_train_step(spec: GANSpec):
     """``train_step(state, batch, z_critic=None, z_g=None, u_gp=None,
-    labels_critic=None, labels_g=None) -> metrics``.
+    labels_critic=None, labels_g=None, masks_critic=None, masks_g=None)
+    -> metrics``.
 
     ``batch["image"]`` is ``[n_critic, B, S, S, 3]``; a conditional family
     also reads ``batch["label"]`` ``[n_critic, B]``. Draws come from the
@@ -53,7 +57,10 @@ def make_train_step(spec: GANSpec):
     ``z_critic`` ``[n_critic, B, z_dim]`` then ``labels_critic`` ``[n_critic,
     B]`` (the critic fakes' classes) from ``d_noise``, ``z_g`` ``[B, z_dim]``
     then ``labels_g`` ``[B]`` from ``g_noise``, ``u_gp`` ``[n_critic, B, 1, 1,
-    1]``. Metrics are device tensors; reading them waits for the step."""
+    1]``, and the dropout masks of a family with dropout: ``masks_critic``
+    one set per critic substep, ``masks_g`` the G update's (the spec says
+    what a set holds). Metrics are device tensors; reading them waits for
+    the step."""
 
     def _apply(params, grads, opt, sched) -> None:
         for p, g in zip(params, grads):
@@ -66,7 +73,9 @@ def make_train_step(spec: GANSpec):
                    z_g: Optional[torch.Tensor] = None,
                    u_gp: Optional[torch.Tensor] = None,
                    labels_critic: Optional[torch.Tensor] = None,
-                   labels_g: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                   labels_g: Optional[torch.Tensor] = None,
+                   masks_critic: Optional[Sequence] = None,
+                   masks_g=None) -> Dict[str, torch.Tensor]:
         images = batch["image"]
         if images.shape[0] != spec.n_critic:
             raise ValueError(f"batch['image'] must be a [n_critic={spec.n_critic}"
@@ -87,7 +96,8 @@ def make_train_step(spec: GANSpec):
         for i in range(spec.n_critic):
             labels = (batch["label"][i], labels_critic[i]) if nc else None
             loss, metrics = spec.d_loss(images[i], fakes[i], alpha, state.d_noise,
-                                        None if u_gp is None else u_gp[i], labels)
+                                        None if u_gp is None else u_gp[i], labels,
+                                        None if masks_critic is None else masks_critic[i])
             _apply(d_params, torch.autograd.grad(loss, d_params),
                    state.d_opt, state.d_sched)
 
@@ -97,7 +107,7 @@ def make_train_step(spec: GANSpec):
             labels_g = torch.randint(0, nc, (n,), device=dev, generator=state.g_noise)
         g_named = list(state.g.named_parameters())
         g_params = [p for _, p in g_named]
-        g_loss = spec.g_loss(z_g, alpha, labels_g)
+        g_loss, g_metrics = spec.g_loss(z_g, alpha, labels_g, state.g_noise, masks_g)
         _apply(g_params, torch.autograd.grad(g_loss, g_params),
                state.g_opt, state.g_sched)
 
@@ -108,6 +118,6 @@ def make_train_step(spec: GANSpec):
                 torch._foreach_mul_(ema, d_)
                 torch._foreach_add_(ema, g_params, alpha=1.0 - d_)
         state.step += 1
-        return {**metrics, "g_loss": g_loss.detach()}
+        return {**metrics, **g_metrics, "g_loss": g_loss.detach()}
 
     return train_step

@@ -9,19 +9,24 @@ ladder's own ``build_phase`` from the PGGAN CLI's defaults.
 ``--model sngan_imagenet``: the fused SNGAN-projection ImageNet-128 step at
 full width (1000 classes, batch 64, n_critic 5, bf16, EMA 0.9999) built by
 ``train_sngan_imagenet.build``, on class blobs rendered on the device.
+``--model acgan``: the ACGAN CIFAR-10 step at full width (batch 100, bf16,
+bce, aux weight 1.0) built by ``train_acgan.build``. ``--num-classes N``
+with ``--model sngan``: the conditional CIFAR SNGAN (projection D, 12
+spectral-norm weights).
 
 Warms up, then traces a few steps with ``torch.profiler`` and prints: wall
 ms/step (timed without the profiler), device-busy ms/step (the sum of the
 traced kernels' times; user annotations such as ``Optimizer.step`` are left
 out, they overlap their kernels) and the idle share against the unprofiled
-wall time, kernels per step, the hand-written kernel's launches per step,
+wall time, kernels per step, each hand-written kernel's launches per step,
 the device time by kind of kernel (convolutions and matmuls, elementwise,
 casts and copies, reductions, pooling, the optimizers' fused updates, the
 hand-written kernels) and the kernels with the most device time.
 The trace goes to ``chiprun_out/torch_step_trace_<model>.json``.
 
 Usage (on the machine with the card, from the repository root):
-    python3 profile_torch_step.py [--model sngan|pggan|sngan_imagenet] [--steps 5] [--top 25]
+    python3 profile_torch_step.py [--model sngan|pggan|sngan_imagenet|acgan]
+                                  [--num-classes N] [--steps 5] [--top 25]
 """
 
 from __future__ import annotations
@@ -54,15 +59,18 @@ def main() -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from gan_lib_tensorflow_tpu_torch.cli import (common, train_pggan, train_sngan,
-                                                  train_sngan_imagenet)
+    from gan_lib_tensorflow_tpu_torch.cli import (common, train_acgan, train_pggan,
+                                                  train_sngan, train_sngan_imagenet)
     from gan_lib_tensorflow_tpu_torch.ops import fadein
     from gan_lib_tensorflow_tpu_torch.ops import power_iteration as pi
     from gan_lib_tensorflow_tpu_torch.train import make_train_step
     from gan_lib_tensorflow_tpu_torch.train.pggan_loop import build_phase
 
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--model", choices=["sngan", "pggan", "sngan_imagenet"], default="sngan")
+    p.add_argument("--model", choices=["sngan", "pggan", "sngan_imagenet", "acgan"],
+                   default="sngan")
+    p.add_argument("--num-classes", type=int, default=0,
+                   help="sngan: >0 profiles the conditional variant")
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--top", type=int, default=25)
     opts = p.parse_args()
@@ -73,25 +81,28 @@ def main() -> None:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
 
     if opts.model == "sngan":
-        args = train_sngan.parse_args(["--data", "fake", "--device", "cuda",
-                                       "--steps", "100000"])
+        args = train_sngan.parse_args(["--data", "fake", "--device", "cuda", "--steps",
+                                       "100000", "--num-classes", str(opts.num_classes)])
         _, _, spec, state = train_sngan.build(args)
         batches = iter(common.image_source(args, args.batch_size, 32, 10,
                                            n_micro=spec.n_critic))
-        kernel = pi
     elif opts.model == "sngan_imagenet":
         args = train_sngan_imagenet.parse_args(["--data", "fake", "--device", "cuda"])
         _, _, spec, state = train_sngan_imagenet.build(args)
         batches = iter(common.image_source(args, args.batch_size, 128, args.num_classes,
                                            n_micro=spec.n_critic))
-        kernel = pi
+    elif opts.model == "acgan":
+        args = train_acgan.parse_args(["--data", "fake", "--device", "cuda"])
+        g, _, spec, state = train_acgan.build(args)
+        batches = iter(common.image_source(args, args.batch_size, 32, g.num_classes,
+                                           n_micro=spec.n_critic))
     else:
         args = train_pggan.parse_args(["--data", "fake", "--device", "cuda"])
         ph = build_phase(train_pggan.ladder_config(args), 1024, "transition")
         spec, state = ph.spec, ph.state
         state.alpha = 0.5
         batches = iter(train_pggan.source_factory(args)(1024, ph.batch))
-        kernel = fadein
+    kernels = {"power_iteration": pi, "fadein_blend": fadein}
     step_fn = make_train_step(spec)
     for _ in range(3):
         step_fn(state, next(batches))
@@ -102,7 +113,8 @@ def main() -> None:
     float(metrics["d_loss"])
     wall = (time.perf_counter() - t0) / opts.steps
 
-    kernel.launches = 0
+    for mod in kernels.values():
+        mod.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(opts.steps):
             metrics = step_fn(state, next(batches))
@@ -114,13 +126,13 @@ def main() -> None:
                 and not getattr(e, "is_user_annotation", False))
 
     n = opts.steps
-    kernels = [e for e in prof.events() if is_kernel(e)]
-    busy_us = sum(e.device_time_total for e in kernels)
+    traced = [e for e in prof.events() if is_kernel(e)]
+    busy_us = sum(e.device_time_total for e in traced)
     print(f"card: {smi}")
     print(f"wall {1e3 * wall:.2f} ms/step (no profiler), device busy "
           f"{busy_us / 1e3 / n:.2f} ms/step, idle share "
-          f"{1 - busy_us / 1e6 / n / wall:.3f}, device kernels {len(kernels) / n:.0f}/step, "
-          f"{kernel.__name__.rsplit('.', 1)[-1]} launches {kernel.launches / n:.0f}/step")
+          f"{1 - busy_us / 1e6 / n / wall:.3f}, device kernels {len(traced) / n:.0f}/step, "
+          + ", ".join(f"{k} launches {mod.launches / n:.0f}/step" for k, mod in kernels.items()))
     averages = [e for e in prof.key_averages() if is_kernel(e)]
     by_kind = collections.Counter()
     for e in averages:
@@ -134,6 +146,8 @@ def main() -> None:
         print(f"{e.device_time_total / 1e3 / n:14.3f} {e.device_time_total / busy_us:6.3f} "
               f"{e.count / n:10.1f}  {e.key[:110]}")
     os.makedirs("chiprun_out", exist_ok=True)
+    if opts.num_classes:  # the conditional variant's trace gets a name of its own
+        opts.model += f"_{opts.num_classes}c"
     prof.export_chrome_trace(os.path.join("chiprun_out", f"torch_step_trace_{opts.model}.json"))
 
 

@@ -81,6 +81,7 @@ def test_import_leaves_jax_out():
         "import gan_lib_tensorflow_tpu_torch.cli.evaluate\n"
         "import gan_lib_tensorflow_tpu_torch.cli.north_star\n"
         "import gan_lib_tensorflow_tpu_torch.cli.sample\n"
+        "import gan_lib_tensorflow_tpu_torch.cli.train_acgan\n"
         "import gan_lib_tensorflow_tpu_torch.cli.train_pggan\n"
         "import gan_lib_tensorflow_tpu_torch.cli.train_sngan\n"
         "import gan_lib_tensorflow_tpu_torch.cli.train_sngan_imagenet\n"
@@ -93,6 +94,7 @@ def test_import_leaves_jax_out():
         "import gan_lib_tensorflow_tpu_torch.eval.features\n"
         "import gan_lib_tensorflow_tpu_torch.eval.inception_v3\n"
         "import gan_lib_tensorflow_tpu_torch.eval.metrics\n"
+        "import gan_lib_tensorflow_tpu_torch.models.acgan\n"
         "import gan_lib_tensorflow_tpu_torch.models.sngan\n"
         "import gan_lib_tensorflow_tpu_torch.ops.fadein\n"
         "import gan_lib_tensorflow_tpu_torch.ops.power_iteration\n"

@@ -209,11 +209,12 @@ def test_train_sngan_eval_reads_the_resident_store(tmp_path, monkeypatch):
     from gan_lib_tensorflow_tpu_torch.eval.features import FixedFeatureNet
     from gan_lib_tensorflow_tpu_torch.models import sngan
 
-    monkeypatch.setattr(sngan, "cifar_generator", lambda compute_dtype=None:
+    monkeypatch.setattr(sngan, "cifar_generator", lambda compute_dtype=None, num_classes=0:
                         sngan.ResNetGenerator(channels=(8, 8, 8), bottom_ch=8, z_dim=8,
+                                              num_classes=num_classes,
                                               compute_dtype=compute_dtype))
-    monkeypatch.setattr(sngan, "cifar_discriminator", lambda compute_dtype=None:
-                        sngan.ResNetDiscriminator(channels=(8,) * 4,
+    monkeypatch.setattr(sngan, "cifar_discriminator", lambda compute_dtype=None, num_classes=0:
+                        sngan.ResNetDiscriminator(channels=(8,) * 4, num_classes=num_classes,
                                                   compute_dtype=compute_dtype))
     monkeypatch.setattr(train_sngan, "InceptionV3Features", lambda params_npz=None,
                         device="cpu": FixedFeatureNet(image_size=32, feature_dim=8,

@@ -30,11 +30,12 @@ def _fixed_net(params_npz=None, device="cpu"):
 @pytest.fixture
 def tiny(monkeypatch):
     """Tiny SNGAN networks (32x32 out) and the cheap extractor in every CLI."""
-    monkeypatch.setattr(sngan, "cifar_generator", lambda compute_dtype=None:
+    monkeypatch.setattr(sngan, "cifar_generator", lambda compute_dtype=None, num_classes=0:
                         sngan.ResNetGenerator(channels=(16, 16, 16), bottom_ch=16,
-                                              z_dim=16, compute_dtype=compute_dtype))
-    monkeypatch.setattr(sngan, "cifar_discriminator", lambda compute_dtype=None:
-                        sngan.ResNetDiscriminator(channels=(16,) * 4,
+                                              z_dim=16, num_classes=num_classes,
+                                              compute_dtype=compute_dtype))
+    monkeypatch.setattr(sngan, "cifar_discriminator", lambda compute_dtype=None, num_classes=0:
+                        sngan.ResNetDiscriminator(channels=(16,) * 4, num_classes=num_classes,
                                                   compute_dtype=compute_dtype))
     monkeypatch.setattr(train_sngan, "InceptionV3Features", _fixed_net)
     monkeypatch.setattr(evaluate, "InceptionV3Features", _fixed_net)
@@ -122,11 +123,12 @@ def test_real_moments_n_real_below_batch_raises():
 
 @pytest.mark.parametrize("model", ["pggan", "acgan", "imagenet"])
 def test_evaluate_refuses_families_not_ported(model, tmp_path):
-    """A family whose eval is not ported is refused, naming its ROADMAP
-    item; the SNGAN-projection family (``imagenet``) is ported and is no
-    longer refused: it gets as far as looking for its checkpoint."""
+    """A family whose eval is not ported (PGGAN's) is refused, naming its
+    ROADMAP item; the SNGAN-projection (``imagenet``) and ACGAN families are
+    ported and are no longer refused: they get as far as looking for their
+    checkpoint."""
     argv = ["--model", model, "--ckpt-dir", str(tmp_path), "--device", "cpu"]
-    if model == "imagenet":
+    if model in ("imagenet", "acgan"):
         with pytest.raises(FileNotFoundError, match="no checkpoint"):
             evaluate.main(argv)
         return
