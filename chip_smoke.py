@@ -146,6 +146,10 @@ CIFAR_FILES, CIFAR_PER_FILE = [f"data_batch_{i}" for i in range(1, 6)] + ["test_
 CIFAR_STEPS, IMAGENET_STEPS, LOG_EVERY = 12, 12, 4
 ACGAN_STEPS, ACGAN_BATCH = 24, 100
 IMAGENET_STORE = 3_200  # 10 fused steps of 5 x 64 images: an epoch ends inside the run
+# pix2pix: the facades layout (400 training pairs, jitter from 286 to 256),
+# full width, batch 1; 4 warm-up steps, then 24 timed
+PIX_PAIRS, PIX_SCALE, PIX_SIZE, PIX_WIDTH = 400, 286, 256, 64
+PIX_WARM, PIX_TIMED = 4, 24
 
 
 def nvidia_smi(fields: str) -> str:
@@ -1020,6 +1024,170 @@ def acgan_and_conditional_sngan(card: str, tmp: str) -> int:
     return cond_launches
 
 
+def pix2pix_full_width(card: str, tmp: str) -> None:
+    """Phase 13, in the temporary directory ``tmp``."""
+    import numpy as np
+    import torch
+    from gan_lib_tensorflow_tpu_torch.cli import train_pix2pix
+    from gan_lib_tensorflow_tpu_torch.data import DeviceCachedPairedStore, PackedPairedStore
+    from gan_lib_tensorflow_tpu_torch.data.base import normalize_u8_np
+    from gan_lib_tensorflow_tpu_torch.data.packed import finalize_store, write_store
+    from gan_lib_tensorflow_tpu_torch.models import pix2pix
+    from gan_lib_tensorflow_tpu_torch.ops import fadein as fd
+    from gan_lib_tensorflow_tpu_torch.ops import power_iteration as pi
+
+    kernels = {"power_iteration": pi, "fadein_blend": fd}
+    pi.launches = fd.launches = 0  # every launch of the whole phase counts
+    store = os.path.join(tmp, "facades")
+    t0 = time.perf_counter()
+    rows, _ = write_store(store, PIX_PAIRS, PIX_SCALE, 2 * PIX_SCALE, 3, paired=True)
+    rng = np.random.default_rng(13)
+    for i in range(0, PIX_PAIRS, 50):
+        rows[i:i + 50] = rng.integers(0, 256, rows[i:i + 50].shape, np.uint8)
+    finalize_store(store, rows, None)
+    n_bytes = rows.nbytes
+    del rows
+    print(f"packed paired store: {PIX_PAIRS} pairs of {PIX_SCALE}x{2 * PIX_SCALE}x3 "
+          f"({n_bytes} bytes), written in {time.perf_counter() - t0:.2f} s")
+
+    # (a) full width through the CLI, from the store held on the card
+    sources = []
+    inner = captured(train_pix2pix, "paired_source", sources)
+    args = ["--data", store, "--device", "cuda", "--image-size", str(PIX_SIZE),
+            "--scale-size", str(PIX_SCALE), "--ngf", str(PIX_WIDTH), "--ndf", str(PIX_WIDTH),
+            "--compute-dtype", "bf16", "--sample-every", "1000"]
+    run = os.path.join(tmp, "pix2pix_timed")
+    n_steps = PIX_WARM + PIX_TIMED
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        st = train_pix2pix.main(args + ["--steps", str(n_steps), "--log-every", str(PIX_WARM),
+                                        "--ckpt-every", "1000", "--out-dir", run])
+    finally:
+        train_pix2pix.paired_source = inner
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    (src,) = sources
+    check(isinstance(src, DeviceCachedPairedStore) and src.nbytes_resident() == n_bytes,
+          f"pix2pix did not take the device-cached route: {type(src).__name__}")
+    with open(os.path.join(run, "log.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    check(len(lines) == n_steps // PIX_WARM and all(
+        math.isfinite(v) for rec in lines for v in rec.values()), "pix2pix metrics not finite")
+    timed = [rec["sec_per_step"] for rec in lines[1:]]  # steps PIX_WARM+1 .. n_steps
+    sps = statistics.mean(timed)
+    g, d = st.g, st.d
+    print(f"pix2pix, full width (U-Net ngf {PIX_WIDTH}, PatchGAN ndf {PIX_WIDTH}), "
+          f"{PIX_SIZE}x{PIX_SIZE}, batch 1, bf16, from the store held on the card "
+          f"({src.nbytes_resident()} bytes resident): ms/step {1e3 * sps:.2f} over steps "
+          f"{PIX_WARM + 1}-{n_steps} (per {PIX_WARM} steps: "
+          + ", ".join(f"{1e3 * t:.2f}" for t in timed) + f"), images/s/GPU {1 / sps:.1f}  "
+          f"peak memory {peak / 2**20:.0f} MiB; {run_s:.1f} s for the run with its build; "
+          f"G {sum(p.numel() for p in g.parameters())} and D "
+          f"{sum(p.numel() for p in d.parameters())} parameters; last metrics "
+          + " ".join(f"{k} {v:.4g}" for k, v in lines[-1].items() if k != "step")
+          + f"  [{card}]")
+
+    # (b) one device batch against the host jitter of the same controls
+    host = PackedPairedStore(store, batch_size=1, image_size=PIX_SIZE, seed=0)
+    for pos in (0, 399, 1234):
+        controls = src.controls_for(pos)
+        got = {k: v.cpu().numpy()[0] for k, v in src.gather(*controls).items()}
+        want = host._crops(*controls)
+        (i,), (y,), (x,), (f,) = controls
+        row = np.asarray(host.images[i])
+        for k, x0 in (("input", 0), ("target", PIX_SCALE)):
+            win = row[y:y + PIX_SIZE, x0 + x:x0 + x + PIX_SIZE]
+            plain = normalize_u8_np(win[:, ::-1] if f else win)
+            check(np.array_equal(got[k].view(np.uint32), want[k].view(np.uint32))
+                  and np.array_equal(got[k][0].view(np.uint32), plain.view(np.uint32)),
+                  f"device batch {pos} ({k}) differs from the host jitter")
+    print("device batches at positions 0, 399, 1234 bit-equal to the host jitter of the "
+          "same controls_for(pos) (crop, flip, normalize; and to a numpy slice)")
+    del st, src, sources
+
+    # (c) faulted and resumed, bit-equal, under deterministic cuDNN
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        _, pix_dir, counts = resume_bit_equal(train_pix2pix.main, args, tmp, "pix2pix",
+                                              kernels)
+
+        # (d) float32 G and D, card vs CPU, the same dropout masks
+        g32 = pix2pix.UNetGenerator(PIX_SIZE, PIX_WIDTH)
+        d32 = pix2pix.PatchGANDiscriminator(PIX_WIDTH)
+        g32.load_state_dict(g.state_dict())
+        d32.load_state_dict(d.state_dict())
+        gen = torch.Generator().manual_seed(0)
+        x = torch.rand(1, PIX_SIZE, PIX_SIZE, 3, generator=gen) * 2 - 1
+        masks = g32.draw_masks(1, gen)
+        with torch.no_grad():
+            out_cpu = g32(x, masks, train=False)
+            logits_cpu = d32(x, out_cpu, train=True, update_stats=False)
+            out = g32.cuda()(x.cuda(), [m.cuda() for m in masks], train=False)
+            logits = d32.cuda()(x.cuda(), out, train=True, update_stats=False)
+        check(tuple(out.shape) == (1, PIX_SIZE, PIX_SIZE, 3)
+              and tuple(logits.shape) == (1, PIX_SIZE // 8 - 2, PIX_SIZE // 8 - 2, 1)
+              and bool(torch.isfinite(out).all())
+              and bool(torch.isfinite(logits).all()), "pix2pix G/D output not finite")
+        torch.testing.assert_close(out.cpu(), out_cpu, rtol=1e-3, atol=1e-3)
+        torch.testing.assert_close(logits.cpu(), logits_cpu, rtol=1e-3, atol=1e-3)
+        print(f"float32 pix2pix G (train=False, dropout masks injected) and D (batch "
+              f"statistics) at full width on the card agree with the CPU (rtol 1e-3, atol "
+              f"1e-3): max abs err images {float((out.cpu() - out_cpu).abs().max()):.3e}, "
+              f"30x30 logits {float((logits.cpu() - logits_cpu).abs().max()):.3e}")
+        del g, d, g32, d32
+
+        # (e) the test pass and the export bundle of the resumed run's checkpoint
+        t0 = time.perf_counter()
+        metrics = train_pix2pix.main(args + ["--mode", "test", "--out-dir", pix_dir,
+                                             "--max-test-images", "8"])
+        check(metrics["n_examples"] == 8 and metrics["step"] == 12
+              and math.isfinite(metrics["test_l1"]), f"test metrics {metrics}")
+        with open(os.path.join(pix_dir, "test_metrics.json")) as f:
+            check(json.load(f) == metrics, "test_metrics.json differs from the returned metrics")
+        with open(os.path.join(pix_dir, "index.html")) as f:
+            check(f.read().count("<tr><td>") == 8, "index.html does not list 8 examples")
+        for j in range(8):
+            for kind in ("input", "output", "target"):
+                with open(os.path.join(pix_dir, "images", f"{j:05d}-{kind}.png"), "rb") as f:
+                    head = f.read(24)
+                check(head[:8] == b"\x89PNG\r\n\x1a\n" and struct.unpack(">II", head[16:24])
+                      == (PIX_SIZE, PIX_SIZE), f"{j:05d}-{kind}.png header {head!r}")
+        print(f"--mode test: 8 examples, test_l1 {metrics['test_l1']!r} at step "
+              f"{metrics['step']}, index.html and 24 PNGs of {PIX_SIZE}x{PIX_SIZE}, "
+              f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        bundle = train_pix2pix.main(args + ["--mode", "export", "--out-dir", pix_dir])
+        export_s = time.perf_counter() - t0
+        g_bf16 = pix2pix.UNetGenerator(PIX_SIZE, PIX_WIDTH, compute_dtype=torch.bfloat16)
+        raw = torch.load(os.path.join(pix_dir, "export", "step_000012.pt"),
+                         map_location="cuda", weights_only=True)
+        g_bf16.load_state_dict(raw["g"])
+        g_bf16.cuda()
+        served = torch.export.load(bundle).module()
+        masks = g_bf16.draw_masks(1, torch.Generator(device="cuda").manual_seed(0))
+        ex = next(host.eval_iter())
+        x = torch.from_numpy(ex["input"]).cuda()
+        with torch.no_grad():
+            got = served(x)
+            want = g_bf16(x, masks, train=False)
+        err = float((got - want).abs().max())
+        check(tuple(got.shape) == (1, PIX_SIZE, PIX_SIZE, 3) and err <= 2.0 ** -6,
+              f"the reloaded bundle differs from the eager translator by {err}")
+        print(f"--mode export: {bundle} ({os.path.getsize(bundle)} bytes) in {export_s:.1f} s; "
+              f"torch.export.load(...).module() on the card vs the eager translator with the "
+              f"same fixed masks: bit-equal {torch.equal(got, want)}, max abs err {err:.3e} "
+              f"(bound 2^-6, bf16)")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.synchronize()
+    check(pi.launches == 0 and fd.launches == 0 and all(v == [0, 0, 0] for v in counts.values()),
+          f"pix2pix launched a kernel: power iteration {pi.launches}, fade-in {fd.launches}")
+    print(f"launches in the whole phase: power iteration {pi.launches}, fade-in {fd.launches}")
+
+
 def main() -> None:
     import torch
 
@@ -1336,6 +1504,15 @@ def main() -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 12: {time.perf_counter() - t12:.1f} s  [{card}]")
+
+    phase("13 pix2pix at full width: U-Net 256x256 + 30x30 PatchGAN, paired store on the card")
+    t13 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        pix2pix_full_width(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 13: {time.perf_counter() - t13:.1f} s  [{card}]")
 
     print(json.dumps({"kernels": [{
         "name": "batched_power_iteration",

@@ -1,6 +1,7 @@
-"""Sampling entry point (port of ``gan_lib_tensorflow_tpu/cli/sample.py``,
-without ``--export-dir``): restore the newest checkpoint and write a grid of
-EMA samples from a seed-fixed z.
+"""Sampling entry point (port of ``gan_lib_tensorflow_tpu/cli/sample.py``):
+restore the newest checkpoint and write a grid of EMA samples from a
+seed-fixed z; ``--export-dir`` also writes the serving bundle of that
+sampler (``train/export.py``) for a batch of ``--n``.
 
 Usage:
   python -m gan_lib_tensorflow_tpu_torch.cli.sample --model sngan \\
@@ -14,6 +15,10 @@ Usage:
 
 A conditional G (``sngan_imagenet``, ``acgan``, ``sngan --num-classes N``)
 samples the classes ``arange(n) % num_classes``.
+
+The PGGAN export is not ported: its G calls the fade-in kernel's ctypes
+launch, which ``torch.export`` cannot trace, so ``--model pggan
+--export-dir`` exits with code 2.
 """
 
 from __future__ import annotations
@@ -22,10 +27,12 @@ import argparse
 import sys
 
 import torch
+from torch import nn
 
 from .. import resolve_device
 from ..models import acgan, pggan, sngan
 from ..train import CheckpointManager, eval_state_from_raw
+from ..train.export import write_serving_bundle
 from ..utils import save_image_grid
 
 
@@ -46,7 +53,28 @@ def parse_args(argv=None):
                         "sngan_imagenet: its classes (0 = 1000)")
     p.add_argument("--device", default="cuda",
                    help="torch device; without CUDA only 'cpu' runs")
-    return p.parse_args(argv)
+    p.add_argument("--export-dir", default=None,
+                   help="also write the serving bundle (checkpoint + generator.pt2) here")
+    args = p.parse_args(argv)
+    if args.export_dir and args.model == "pggan":
+        p.error("--export-dir: the PGGAN export is not ported (its fade-in kernel's "
+                "ctypes launch cannot be traced by torch.export)")
+    return args
+
+
+class SamplerModule(nn.Module):
+    """The sampler as a module of z alone, for the export: G at
+    ``train=False`` on the classes ``arange(n) % num_classes`` of a
+    conditional G (a buffer), None otherwise."""
+
+    def __init__(self, g: nn.Module, n: int):
+        super().__init__()
+        self.g = g
+        nc = getattr(g, "num_classes", 0)
+        self.register_buffer("labels", torch.arange(n) % nc if nc else None)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        return self.g(z, self.labels, train=False)
 
 
 def build_generator(args, g_state: dict):
@@ -80,6 +108,20 @@ def main(argv=None):
     imgs = make_sampler(g)(state, z.to(dev))
     save_image_grid(imgs.cpu().numpy(), args.out)
     print(f"wrote {args.n} samples (step {state.step}) to {args.out}", flush=True)
+    if args.export_dir:
+        export_generator(args, g, state, dev)
+
+
+def export_generator(args, g, state, dev) -> str:
+    """The serving bundle of the sampler: EMA parameters where the
+    checkpoint has them (G's own otherwise) with G's buffers, as sampled."""
+    payload = {"g": state.g, "alpha": state.alpha}
+    if state.ema_params is not None:
+        payload["ema_params"] = state.ema_params
+        g.load_state_dict({**state.g, **state.ema_params})
+    return write_serving_bundle(args.export_dir, state.step, payload,
+                                SamplerModule(g, args.n).to(dev),
+                                torch.zeros(args.n, g.z_dim, device=dev))
 
 
 if __name__ == "__main__":

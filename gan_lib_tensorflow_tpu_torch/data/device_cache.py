@@ -1,5 +1,6 @@
-"""Device-resident packed store (port of ``gan_lib_tensorflow_tpu/data/
-device_cache.py:46-225``; the paired store is not ported).
+"""Device-resident packed stores (port of ``gan_lib_tensorflow_tpu/data/
+device_cache.py:46-370``): ``DeviceCachedStore`` and pix2pix's
+``DeviceCachedPairedStore``.
 
 The uint8 store and its int32 labels are uploaded to the card once; each
 step then ships only its ``[n_micro, B]`` indices, gathers ``images[idx]``
@@ -24,11 +25,29 @@ import torch
 
 from .. import resolve_device
 from .base import normalize_u8
-from .packed import META_NAME, PackedImageStore
+from .packed import META_NAME, PackedImageStore, PackedPairedStore, crop_pairs
 from .pipeline import ThreadedSource
 
 #: default device-memory budget of the ``auto`` policy (``--device-cache-gb``)
 DEFAULT_CACHE_BYTES = 2 * 2**30
+
+
+def _fits_cache(path: str, policy: str, budget_bytes: int) -> bool:
+    """Whether ``policy`` puts the store at ``path`` on the device: ``on``
+    always (the cache's constructor is the one budget check then), ``auto``
+    when its images fit ``budget_bytes``, ``off`` never."""
+    if policy not in ("auto", "on", "off"):
+        raise ValueError(f"device-cache policy must be auto|on|off, got {policy!r}")
+    if policy == "off":
+        return False
+    with open(os.path.join(path, META_NAME)) as f:
+        m = json.load(f)
+    nbytes = m["n"] * m["height"] * m["width"] * m["channels"]
+    if policy == "on" or nbytes <= budget_bytes:
+        return True
+    print(f"note: packed store {path} is {nbytes / 2**30:.2f} GiB > "
+          f"device-cache budget {budget_bytes / 2**30:.2f} GiB; streaming it", flush=True)
+    return False
 
 
 def packed_training_source(path: str, batch_size: int, n_micro: int = 1,
@@ -43,19 +62,9 @@ def packed_training_source(path: str, batch_size: int, n_micro: int = 1,
       budget with a sized error.
     - ``off``: always stream.
     """
-    if policy not in ("auto", "on", "off"):
-        raise ValueError(f"device-cache policy must be auto|on|off, got {policy!r}")
-    if policy != "off":
-        with open(os.path.join(path, META_NAME)) as f:
-            m = json.load(f)
-        nbytes = m["n"] * m["height"] * m["width"] * m["channels"]
-        if policy == "on" or nbytes <= budget_bytes:
-            # the constructor counts images + labels and is the one budget check
-            return DeviceCachedStore(path, batch_size=batch_size, n_micro=n_micro,
-                                     seed=seed, device=device, max_bytes=budget_bytes)
-        print(f"note: packed store {path} is {nbytes / 2**30:.2f} GiB > "
-              f"device-cache budget {budget_bytes / 2**30:.2f} GiB; "
-              "streaming with uint8 wire", flush=True)
+    if _fits_cache(path, policy, budget_bytes):
+        return DeviceCachedStore(path, batch_size=batch_size, n_micro=n_micro,
+                                 seed=seed, device=device, max_bytes=budget_bytes)
     return ThreadedSource(PackedImageStore(path, batch_size=batch_size, seed=seed,
                                            wire_dtype="uint8"),
                           num_workers=1)
@@ -169,3 +178,98 @@ class DeviceCachedStore:
                 f"{n_batches * batch_size} images but the store holds {self.n}")
         for i in range(n_batches):
             yield normalize_u8(self._images[i * batch_size:(i + 1) * batch_size])
+
+
+def packed_paired_training_source(path: str, batch_size: int, image_size: int = 256,
+                                  which_direction: str = "AtoB", flip: bool = True,
+                                  n_micro: int = 1, seed: int = 0, device="cuda",
+                                  policy: str = "auto",
+                                  budget_bytes: int = DEFAULT_CACHE_BYTES):
+    """The way to feed a paired store to pix2pix's train loop, by the
+    policy rule of ``packed_training_source``: ``DeviceCachedPairedStore``,
+    or one ``ThreadedSource`` worker streaming ``PackedPairedStore``'s
+    float32 batches (the jitter runs on the host then)."""
+    kw = dict(batch_size=batch_size, image_size=image_size,
+              which_direction=which_direction, flip=flip, seed=seed)
+    if _fits_cache(path, policy, budget_bytes):
+        return DeviceCachedPairedStore(path, n_micro=n_micro, device=device,
+                                       max_bytes=budget_bytes, **kw)
+    return ThreadedSource(PackedPairedStore(path, **kw), num_workers=1)
+
+
+class DeviceCachedPairedStore:
+    """pix2pix's twin of ``DeviceCachedStore``: the combined A|B uint8 rows
+    live on ``device``; each step ships its indices, crop offsets and flip
+    bits (one small copy) and ``crop_pairs`` jitters, crops and normalizes
+    both halves there, in one gather. Infinite ``{"input", "target"}``
+    ``[n_micro, B, c, c, 3]`` float32 stacks; ``yields_stacks``.
+
+    ``controls_for(pos)`` is a pure function of ``(seed, pos)`` (the
+    reference's: ``_epoch_permutation`` for the indices, ``default_rng((seed,
+    pos, 1))`` for the offsets and flips), so a resumed run replays the
+    stream; a batch equals ``PackedPairedStore``'s host jitter of the same
+    controls bit for bit."""
+
+    yields_stacks = True
+
+    def __init__(self, path: str, batch_size: int = 1, image_size: int = 256,
+                 which_direction: str = "AtoB", flip: bool = True, n_micro: int = 1,
+                 seed: int = 0, device="cuda", max_bytes: Optional[int] = None):
+        host = PackedPairedStore(path, batch_size=batch_size, image_size=image_size,
+                                 which_direction=which_direction, flip=flip, seed=seed)
+        if max_bytes is not None and host.images.nbytes > max_bytes:
+            raise ValueError(
+                f"store {path} is {host.images.nbytes / 2**30:.2f} GiB > "
+                f"device-cache budget {max_bytes / 2**30:.2f} GiB; stream it "
+                "instead (--device-cache off, or raise --device-cache-gb)")
+        take = n_micro * batch_size
+        if len(host) < take:
+            raise ValueError(f"store {path} holds {len(host)} pairs < one fused-step "
+                             f"stack of n_micro*batch = {take}")
+        self.meta, self.path = host.meta, path
+        self.image_size, self.scale, self.flip = image_size, host.scale, flip
+        self.batch_size, self.n_micro, self.seed = batch_size, n_micro, seed
+        self.n = len(host)
+        self._steps_per_epoch = self.n // take
+        self._offsets = host._offsets()
+        self.device = resolve_device(device)
+        self._rows = torch.from_numpy(np.array(host.images)).to(self.device)
+        self._pos = 0
+
+    def __len__(self) -> int:
+        return self.n
+
+    def nbytes_resident(self) -> int:
+        return int(self._rows.nbytes)
+
+    def set_stream_position(self, pos: int) -> None:
+        """Make the next batch batch ``pos`` of the stream (the train loop
+        primes this with the resumed step)."""
+        self._pos = int(pos)
+
+    def controls_for(self, pos: int):
+        """``(idx, oy, ox, flip)`` of step ``pos``, each ``[n_micro * B]``."""
+        take = self.n_micro * self.batch_size
+        epoch, off = divmod(pos, self._steps_per_epoch)
+        idx = _epoch_permutation(self, epoch)[off * take:(off + 1) * take].astype(np.int32)
+        jr = np.random.default_rng((self.seed, pos, 1))
+        oy, ox = jr.integers(0, self.scale - self.image_size + 1, (2, take)).astype(np.int32)
+        fl = (jr.random(take) < 0.5) if self.flip else np.zeros(take, bool)
+        return idx, oy, ox, fl
+
+    def gather(self, idx, oy, ox, fl) -> dict:
+        """The ``[n_micro, B, c, c, 3]`` stacks of these controls, on the
+        device."""
+        ctl = torch.from_numpy(np.stack([idx, oy, ox, fl]).astype(np.int64)).to(self.device)
+        c = self.image_size
+        inp, tgt = crop_pairs(self._rows, ctl[0], ctl[1], ctl[2], ctl[3].bool(), c,
+                              *self._offsets)
+        shape = (self.n_micro, self.batch_size, c, c, inp.shape[-1])
+        return {"input": inp.view(shape), "target": tgt.view(shape)}
+
+    def __iter__(self) -> Iterator[dict]:
+        # the position lives on the instance: a second iter() continues
+        while True:
+            controls = self.controls_for(self._pos)
+            self._pos += 1
+            yield self.gather(*controls)

@@ -1,26 +1,30 @@
-"""On-device synthetic images (port of ``DeviceFakeImages``, ``blobs`` style
-only, from ``gan_lib_tensorflow_tpu/data/fake.py:154-253``).
+"""Synthetic data (port of ``gan_lib_tensorflow_tpu/data/fake.py``):
+``DeviceFakeImages`` (``blobs`` style only, ``:154-253``) and pix2pix's
+pairs, ``FakePairedImages`` on the host and ``DeviceFakePairedImages`` on
+the device (``:256-372``).
 
-Each batch is rendered on the device from a ``torch.Generator``: one
-class-pinned gaussian blob (plus a jittered copy) per image, low noise,
-clipped to [-1, 1]. The class table is the reference's, so class k looks the
+``DeviceFakeImages`` renders each batch on the device from a
+``torch.Generator``: one class-pinned gaussian blob (plus a jittered copy)
+per image, low noise, clipped to [-1, 1]. The class table is the reference's, so class k looks the
 same in both packages; the random streams differ (distribution twins).
 
-The stream is counter-based, as the reference's is (``fold_in(key, k)``):
-batch k depends only on ``(seed, k)``, because the generator is re-seeded
-from both before each render (on the host, no device sync). The position
-lives on the instance, and ``set_stream_position`` sets it, so a resumed run
-sees the batches an uninterrupted run sees.
+The device streams are counter-based, as the reference's are (``fold_in(key,
+k)``): batch k depends only on ``(seed, k)``, because the generator is
+re-seeded from both before each render (on the host, no device sync). The
+position lives on the instance, and ``set_stream_position`` sets it, so a
+resumed run sees the batches an uninterrupted run sees.
 """
 
 from __future__ import annotations
 
 import hashlib
+from typing import Dict, Iterator
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from .base import DataSource
 
 _MAX_CLASS_TABLE = 1024
 
@@ -34,6 +38,13 @@ def _class_table(num_classes: int):
     color = g.uniform(-1, 1, (n, 3)).astype(np.float32)
     sigma = (0.08 + 0.04 * (np.arange(n) % 5)).astype(np.float32)
     return cxy, color, sigma
+
+
+def _seed_stream(gen: torch.Generator, seed: int, pos: int) -> None:
+    """Seed ``gen`` from ``(seed, pos)``; the CPU generator keys on the low
+    32 bits of its seed, so the pair is mixed into all 64."""
+    key = hashlib.blake2b(f"{seed}:{pos}".encode(), digest_size=8)
+    gen.manual_seed(int.from_bytes(key.digest(), "little") >> 1)
 
 
 class DeviceFakeImages:
@@ -66,10 +77,7 @@ class DeviceFakeImages:
 
     def render(self):
         """Batch ``self._pos`` of the stream; advances the position."""
-        # the CPU generator keys on the low 32 bits of its seed, so mix
-        # (seed, position) into all 64
-        key = hashlib.blake2b(f"{self._seed}:{self._pos}".encode(), digest_size=8)
-        self._gen.manual_seed(int.from_bytes(key.digest(), "little") >> 1)
+        _seed_stream(self._gen, self._seed, self._pos)
         self._pos += 1
         shape = (self.n_micro, self.batch_size)
         g, dev = self._gen, self.device
@@ -87,6 +95,111 @@ class DeviceFakeImages:
         img = blob[..., None] * self._color[lab][..., None, None, :]
         img = img + 0.05 * torch.randn(img.shape, generator=g, device=dev)
         return {"image": img.clamp(-1, 1), "label": lab.to(torch.int32)}
+
+    def __iter__(self):
+        while True:
+            yield self.render()
+
+
+class FakePairedImages(DataSource):
+    """Synthetic ``{"input", "target"}`` pairs on the host, float32 NHWC
+    (the reference's, drawn from ``default_rng(seed)`` the same way, so the
+    batches are equal bit for bit): the target is four filled circles on -1,
+    the input its edge map (``edge_map``), a procedural edges2shoes.
+    ``deterministic_color``: each circle's color is a function of its
+    position and radius, so the target can be learned from the input."""
+
+    def __init__(self, batch_size: int = 1, image_size: int = 256, seed: int = 0,
+                 deterministic_color: bool = False):
+        self.batch_size = batch_size
+        self.image_size = image_size
+        self.seed = seed
+        self.deterministic_color = deterministic_color
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        rng = np.random.default_rng(self.seed)
+        s = self.image_size
+        yy, xx = np.mgrid[0:s, 0:s].astype(np.float32) / (s - 1)
+        while True:
+            tgt = np.empty((self.batch_size, s, s, 3), np.float32)
+            for i in range(self.batch_size):
+                img = np.full((s, s, 3), -1.0, np.float32)
+                for _ in range(4):
+                    cx, cy, r = rng.uniform(0.2, 0.8, 2).tolist() + [rng.uniform(0.05, 0.2)]
+                    mask = ((xx - cx) ** 2 + (yy - cy) ** 2) < r**2
+                    if self.deterministic_color:
+                        color = np.array([2 * cx - 1, 2 * cy - 1,
+                                          (r - 0.05) / 0.15 * 2 - 1], np.float32)
+                    else:
+                        color = rng.uniform(-1, 1, 3)
+                    img[mask] = color
+                tgt[i] = img
+            yield {"input": edge_map(tgt), "target": tgt}
+
+
+def edge_map(tgt: np.ndarray) -> np.ndarray:
+    """The input of a synthetic pair: per pixel the summed absolute
+    differences to the left and upper neighbours of ``[..., S, S, 3]``
+    float32 images, clipped to [0, 1], mapped to [-1, 1] and repeated over 3
+    channels (reference ``fake.py:292-296``)."""
+    gx = np.abs(np.diff(tgt, axis=-2, prepend=tgt[..., :, :1, :])).sum(-1, keepdims=True)
+    gy = np.abs(np.diff(tgt, axis=-3, prepend=tgt[..., :1, :, :])).sum(-1, keepdims=True)
+    edges = np.clip((gx + gy), 0, 1) * 2 - 1
+    return np.repeat(edges, 3, axis=-1).astype(np.float32)
+
+
+class DeviceFakePairedImages:
+    """``FakePairedImages`` rendered on ``device``: ``{"input", "target"}``
+    ``[n_micro, B, S, S, 3]`` float32 stacks, forever, with the same
+    geometry and color rules (a distribution twin: the random streams
+    differ, as the reference's device twin differs from its host one). The
+    input is the target's ``edge_map``, summed in numpy's order, so it
+    equals the host function of the same target."""
+
+    yields_stacks = True
+
+    def __init__(self, batch_size: int = 1, image_size: int = 256, seed: int = 0,
+                 n_micro: int = 1, deterministic_color: bool = False, device="cuda"):
+        dev = resolve_device(device)
+        self.batch_size, self.n_micro = batch_size, n_micro
+        self.deterministic_color = deterministic_color
+        s = image_size
+        grid = torch.arange(s, dtype=torch.float32, device=dev) / max(s - 1, 1)
+        self._yy, self._xx = grid[:, None], grid[None, :]
+        self._s = s
+        self._gen = torch.Generator(device=dev)
+        self._seed, self._pos = seed, 0
+        self.device = dev
+
+    def set_stream_position(self, pos: int) -> None:
+        """Make the next batch batch ``pos`` of the stream (the train loop
+        primes this with the resumed step)."""
+        self._pos = int(pos)
+
+    def render(self) -> Dict[str, torch.Tensor]:
+        """Batch ``self._pos`` of the stream; advances the position."""
+        _seed_stream(self._gen, self._seed, self._pos)
+        self._pos += 1
+        shape = (self.n_micro, self.batch_size)
+        g, dev = self._gen, self.device
+        cxy = torch.rand(shape + (4, 2), generator=g, device=dev) * 0.6 + 0.2
+        r = torch.rand(shape + (4,), generator=g, device=dev) * 0.15 + 0.05
+        if self.deterministic_color:
+            color = torch.stack([2 * cxy[..., 0] - 1, 2 * cxy[..., 1] - 1,
+                                 (r - 0.05) / 0.15 * 2 - 1], dim=-1)
+        else:
+            color = torch.rand(shape + (4, 3), generator=g, device=dev) * 2 - 1
+        s = self._s
+        tgt = torch.full(shape + (s, s, 3), -1.0, device=dev)
+        for k in range(4):  # painted in turn: a later circle covers an earlier one
+            mask = ((self._xx - cxy[..., k, 0, None, None]) ** 2
+                    + (self._yy - cxy[..., k, 1, None, None]) ** 2) < r[..., k, None, None] ** 2
+            tgt = torch.where(mask[..., None], color[..., k, None, None, :], tgt)
+        dx = torch.diff(tgt, dim=-2, prepend=tgt[..., :, :1, :]).abs()
+        dy = torch.diff(tgt, dim=-3, prepend=tgt[..., :1, :, :]).abs()
+        edges = (dx[..., 0] + dx[..., 1] + dx[..., 2]) + (dy[..., 0] + dy[..., 1] + dy[..., 2])
+        inp = (edges.clamp(0, 1) * 2 - 1)[..., None].expand(*edges.shape, 3)
+        return {"input": inp.contiguous(), "target": tgt}
 
     def __iter__(self):
         while True:

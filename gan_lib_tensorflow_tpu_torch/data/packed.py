@@ -1,9 +1,12 @@
-"""Prepacked uint8 image store (port of ``gan_lib_tensorflow_tpu/data/
-packed.py:36-126``; the paired store and the PGGAN pyramid are not ported).
+"""Prepacked uint8 image stores (port of ``gan_lib_tensorflow_tpu/data/
+packed.py:36-222``; the PGGAN pyramid is not ported): ``PackedImageStore``
+and pix2pix's ``PackedPairedStore``.
 
 Store layout (one directory):
   meta.json   {"n", "height", "width", "channels", "num_classes", ...}
-  images.u8   raw [N, H, W, C] uint8, C-contiguous (read through np.memmap)
+              (+ "paired": true for a paired store)
+  images.u8   raw [N, H, W, C] uint8, C-contiguous (read through np.memmap);
+              a paired store's rows are combined A|B, [N, s, 2s, 3]
   labels.npy  int32 [N] (absent for unlabeled datasets)
 
 A store larger than host memory stays on disk: batches are gathered out of
@@ -17,8 +20,9 @@ import os
 from typing import Dict, Iterator, Optional
 
 import numpy as np
+import torch
 
-from .base import DataSource, normalize_u8_np
+from .base import DataSource, normalize_u8, normalize_u8_np
 
 META_NAME = "meta.json"
 
@@ -28,10 +32,12 @@ def is_packed_dir(path: str) -> bool:
 
 
 def write_store(out_dir: str, n: int, height: int, width: int,
-                channels: int = 3, classes=None):
+                channels: int = 3, classes=None, paired: bool = False):
     """Create a store for incremental writing; returns ``(images_memmap,
     labels_array or None)``. The caller fills both, then calls
-    ``finalize_store``."""
+    ``finalize_store``. ``paired``: a pix2pix store of combined A|B rows
+    (``width`` = 2 x ``height``), as ``tools/prepack_dataset.py --paired``
+    writes it."""
     os.makedirs(out_dir, exist_ok=True)
     images = np.memmap(os.path.join(out_dir, "images.u8"), np.uint8, "w+",
                        shape=(n, height, width, channels))
@@ -39,6 +45,8 @@ def write_store(out_dir: str, n: int, height: int, width: int,
     meta = {"n": n, "height": height, "width": width, "channels": channels,
             "num_classes": 0 if classes is None else len(classes),
             "classes": classes, "format": "ganpack-v1"}
+    if paired:
+        meta["paired"] = True
     with open(os.path.join(out_dir, META_NAME), "w") as f:
         json.dump(meta, f)
     return images, labels
@@ -102,3 +110,97 @@ class PackedImageStore(DataSource):
                 if self.labels is not None:
                     out["label"] = self.labels[idx]
                 yield out
+
+
+def crop_pairs(rows: torch.Tensor, idx: torch.Tensor, oy: torch.Tensor,
+               ox: torch.Tensor, flip: torch.Tensor, crop: int, in_x: int,
+               tg_x: int):
+    """pix2pix's jitter of ``K`` examples in one gather: example k takes row
+    ``idx[k]`` of the combined A|B ``rows`` (uint8 ``[N, s, 2s, C]``, any
+    device), crops the window at ``(oy[k], ox[k])`` of each half (the input's
+    at column ``in_x + ox``, the target's at ``tg_x + ox``), flips both
+    horizontally where ``flip[k]``, and normalizes (``normalize_u8``).
+    Returns ``(input, target)``, float32 ``[K, crop, crop, C]``."""
+    ar = torch.arange(crop, device=rows.device)
+    ys = (oy[:, None] + ar)[:, :, None]  # [K, c, 1]
+    xs = (ox[:, None] + torch.where(flip[:, None], crop - 1 - ar, ar))[:, None, :]
+    i = idx[:, None, None]
+    return normalize_u8(rows[i, ys, in_x + xs]), normalize_u8(rows[i, ys, tg_x + xs])
+
+
+class PackedPairedStore(DataSource):
+    """Shuffled infinite paired batches ``{"input", "target"}`` (float32
+    NHWC in [-1, 1]) out of a paired store, with the reference's jitter: per
+    example one random crop ``scale -> image_size`` and one horizontal flip,
+    shared by both halves. The draws from ``default_rng(seed)`` come in the
+    reference's order: a permutation per epoch, then per example
+    ``integers(0, s - c + 1, 2)`` and (with ``flip``) ``random() < 0.5``; the
+    batches equal the reference's bit for bit (``crop_pairs`` normalizes as
+    its native ``crop_flip_normalize`` does)."""
+
+    def __init__(self, path: str, batch_size: int = 1, image_size: int = 256,
+                 which_direction: str = "AtoB", flip: bool = True, seed: int = 0):
+        meta_path = os.path.join(path, META_NAME)
+        if not os.path.isfile(meta_path):
+            raise FileNotFoundError(f"not a packed store (no {META_NAME}): {path}")
+        with open(meta_path) as f:
+            self.meta = json.load(f)
+        m = self.meta
+        if not m.get("paired"):
+            raise ValueError(f"{path} is a single-image store; repack it with "
+                             "tools/prepack_dataset.py --paired for pix2pix")
+        if which_direction not in ("AtoB", "BtoA"):
+            raise ValueError(f"which_direction must be AtoB|BtoA, got {which_direction!r}")
+        self.scale = m["height"]
+        if image_size > self.scale:
+            raise ValueError(f"image_size {image_size} exceeds the store's scale_size "
+                             f"{self.scale}; repack with a larger --scale-size")
+        if m["n"] < batch_size:
+            # an epoch would hold no batch and the iterator would spin forever
+            raise ValueError(f"store {path} holds {m['n']} pairs < batch_size "
+                             f"{batch_size}; shrink --batch-size or repack more images")
+        self.images = np.memmap(os.path.join(path, "images.u8"), np.uint8, "r",
+                                shape=(m["n"], m["height"], m["width"], m["channels"]))
+        self.image_size = image_size
+        self.which_direction = which_direction
+        self.flip = flip
+        self.batch_size = batch_size
+        self.seed = seed
+        self.path = path
+
+    def __len__(self) -> int:
+        return int(self.meta["n"])
+
+    def _offsets(self):
+        """(input_x, target_x) base columns of the two halves of a row."""
+        return (self.scale, 0) if self.which_direction == "BtoA" else (0, self.scale)
+
+    def _crops(self, idx, oy, ox, flip) -> Dict[str, np.ndarray]:
+        rows = torch.from_numpy(np.asarray(self.images[np.asarray(idx)]))
+        k = len(rows)
+        inp, tgt = crop_pairs(rows, torch.arange(k), torch.as_tensor(oy),
+                              torch.as_tensor(ox), torch.as_tensor(flip, dtype=torch.bool),
+                              self.image_size, *self._offsets())
+        return {"input": inp.numpy(), "target": tgt.numpy()}
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        rng = np.random.default_rng(self.seed)
+        n, span = len(self), self.scale - self.image_size + 1
+        while True:
+            order = rng.permutation(n)
+            for i in range(0, n - self.batch_size + 1, self.batch_size):
+                idx = np.sort(order[i:i + self.batch_size])
+                oy, ox, flip = [], [], []
+                for _ in idx:
+                    y, x = (int(v) for v in rng.integers(0, span, 2))
+                    oy.append(y)
+                    ox.append(x)
+                    flip.append(bool(self.flip and rng.random() < 0.5))
+                yield self._crops(idx, oy, ox, flip)
+
+    def eval_iter(self) -> Iterator[Dict[str, np.ndarray]]:
+        """The test-mode pass: center crop, no flip, store order, one
+        example per batch, with its ``name``."""
+        o = (self.scale - self.image_size) // 2
+        for j in range(len(self)):
+            yield {**self._crops([j], [o], [o], [False]), "name": f"{j:05d}"}

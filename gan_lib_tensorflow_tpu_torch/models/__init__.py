@@ -1,3 +1,3 @@
-from . import acgan, pggan, sngan
+from . import acgan, pggan, pix2pix, sngan
 
-__all__ = ["acgan", "pggan", "sngan"]
+__all__ = ["acgan", "pggan", "pix2pix", "sngan"]

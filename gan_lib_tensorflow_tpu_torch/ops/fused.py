@@ -45,18 +45,24 @@ def conv_transpose_same(x: torch.Tensor, K: torch.Tensor, stride: int,
     NCHW ``x`` and an OIHW square ``K``: output ``[N, O, sH, sW]``.
 
     ``conv_transpose2d`` pads the dilated input by ``k - 1 - padding`` before
-    and that plus ``output_padding`` after, so ``padding = k - 1 - pad_a``
-    gives XLA's pad before; a larger pad after is made up by
-    ``output_padding``, a smaller one by cropping the extra rows and columns
-    at the end (they lie past the last SAME position)."""
+    and after, so ``padding = k - 1 - pad_a`` gives XLA's pad before; a
+    smaller pad after is made up by cropping the extra rows and columns at
+    the end (they lie past the last SAME position), a larger one (only when
+    ``stride > k``, where ``pad_a = k - 1`` and so ``padding = 0``) by
+    ``stride - k`` rows and columns of zeros at the end: no input pixel
+    reaches them. That is ``output_padding``'s value, padded explicitly
+    because torch's CPU kernel with ``output_padding`` on a channels-last
+    input crashes intermittently in its backward."""
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         K = K.to(compute_dtype)
     k = K.shape[-1]
     pad_a, pad_b = transpose_same_pads(k, stride)
-    extra = max(pad_b - pad_a, 0)
     y = F.conv_transpose2d(x, K.flip(2, 3).transpose(0, 1), stride=stride,
-                           padding=k - 1 - pad_a, output_padding=extra)
+                           padding=k - 1 - pad_a)
+    extra = max(pad_b - pad_a, 0)
+    if extra:
+        y = F.pad(y, (0, extra, 0, extra))
     h, w = stride * x.shape[-2], stride * x.shape[-1]
     return y if y.shape[-2:] == (h, w) else y[..., :h, :w]
 

@@ -51,7 +51,12 @@ class CheckpointManager:
     def save(self, step: int, state: GANTrainState, wait: bool = False) -> None:
         """Snapshot ``state`` to host memory now and write it in the
         background (one write in flight; the previous one is waited for)."""
-        payload = _to_host(to_checkpoint(state))
+        self.save_payload(step, to_checkpoint(state), wait)
+
+    def save_payload(self, step: int, payload: dict, wait: bool = False) -> None:
+        """``save`` of any dict of tensors, numbers, strings, lists and dicts
+        (an export bundle's generator payload)."""
+        payload = _to_host(payload)
         self.wait()
         self._pending = self._writer.submit(self._write, step, payload)
         if wait:
@@ -87,13 +92,14 @@ class CheckpointManager:
     def restore_latest_raw(self, map_location="cpu") -> Optional[dict]:
         """The newest checkpoint as a plain dict on ``map_location``, without
         the noise generators' states: the inference view (``state.
-        eval_state_from_raw``). None if there is no checkpoint."""
+        eval_state_from_raw``; an export bundle's payload reads the same
+        way). None if there is no checkpoint."""
         step = self.latest_step()
         if step is None:
             return None
         raw = torch.load(self.path(step), map_location=map_location, weights_only=True)
         for key in ("g_noise", "d_noise"):
-            raw.pop(key)
+            raw.pop(key, None)
         return raw
 
     def wait(self) -> None:

@@ -35,15 +35,21 @@ class GANSpec:
         (else None: a family with dropout draws them from ``noise``)
     g_loss(z, alpha, labels [B], noise, masks) -> (loss, metrics): ``noise``
         is the G update's generator, ``masks`` as for ``d_loss``
+
+    A ``paired`` family (pix2pix) translates real inputs and draws no z:
+    the batch is ``{"input", "target"}`` stacks, ``prepare_fakes`` is None,
+    and the losses take the microbatch dict itself:
+    d_loss(micro, noise, masks) and g_loss(micro, noise, masks).
     """
 
-    prepare_fakes: Callable
+    prepare_fakes: Optional[Callable]
     d_loss: Callable
     g_loss: Callable
     n_critic: int = 1
     ema_decay: float = 0.0
     z_dim: int = 128
     num_classes: int = 0
+    paired: bool = False
 
 
 def make_train_step(spec: GANSpec):
@@ -59,8 +65,9 @@ def make_train_step(spec: GANSpec):
     then ``labels_g`` ``[B]`` from ``g_noise``, ``u_gp`` ``[n_critic, B, 1, 1,
     1]``, and the dropout masks of a family with dropout: ``masks_critic``
     one set per critic substep, ``masks_g`` the G update's (the spec says
-    what a set holds). Metrics are device tensors; reading them waits for
-    the step."""
+    what a set holds). A paired spec's batch is ``{"input", "target"}``
+    ``[n_critic, B, S, S, 3]`` stacks, and only the masks apply. Metrics are
+    device tensors; reading them waits for the step."""
 
     def _apply(params, grads, opt, sched) -> None:
         for p, g in zip(params, grads):
@@ -76,38 +83,35 @@ def make_train_step(spec: GANSpec):
                    labels_g: Optional[torch.Tensor] = None,
                    masks_critic: Optional[Sequence] = None,
                    masks_g=None) -> Dict[str, torch.Tensor]:
-        images = batch["image"]
+        key = "input" if spec.paired else "image"
+        images = batch[key]
         if images.shape[0] != spec.n_critic:
-            raise ValueError(f"batch['image'] must be a [n_critic={spec.n_critic}"
+            raise ValueError(f"batch[{key!r}] must be a [n_critic={spec.n_critic}"
                              f", B, ...] stack, got shape {tuple(images.shape)}")
         if spec.ema_decay > 0 and state.ema_params is None:
             raise ValueError("spec.ema_decay > 0 but state.ema_params is None")
-        n, dev, alpha = images.shape[1], images.device, state.alpha
-        nc = spec.num_classes
-        if z_critic is None:
-            z_critic = torch.randn(spec.n_critic, n, spec.z_dim, device=dev,
-                                   generator=state.d_noise)
-        if nc and labels_critic is None:
-            labels_critic = torch.randint(0, nc, (spec.n_critic, n), device=dev,
-                                          generator=state.d_noise)
-        fakes = spec.prepare_fakes(z_critic, alpha, labels_critic)
+        if spec.paired:
+            def micro(i):
+                return {k: v[i] for k, v in batch.items()}
+
+            def d_call(i, masks):
+                return spec.d_loss(micro(i), state.d_noise, masks)
+
+            def g_call(masks):
+                return spec.g_loss(micro(-1), state.g_noise, masks)
+        else:
+            d_call, g_call = _drawn_calls(spec, state, batch, images, z_critic, z_g,
+                                          u_gp, labels_critic, labels_g)
 
         d_params = list(state.d.parameters())
         for i in range(spec.n_critic):
-            labels = (batch["label"][i], labels_critic[i]) if nc else None
-            loss, metrics = spec.d_loss(images[i], fakes[i], alpha, state.d_noise,
-                                        None if u_gp is None else u_gp[i], labels,
-                                        None if masks_critic is None else masks_critic[i])
+            loss, metrics = d_call(i, None if masks_critic is None else masks_critic[i])
             _apply(d_params, torch.autograd.grad(loss, d_params),
                    state.d_opt, state.d_sched)
 
-        if z_g is None:
-            z_g = torch.randn(n, spec.z_dim, device=dev, generator=state.g_noise)
-        if nc and labels_g is None:
-            labels_g = torch.randint(0, nc, (n,), device=dev, generator=state.g_noise)
         g_named = list(state.g.named_parameters())
         g_params = [p for _, p in g_named]
-        g_loss, g_metrics = spec.g_loss(z_g, alpha, labels_g, state.g_noise, masks_g)
+        g_loss, g_metrics = g_call(masks_g)
         _apply(g_params, torch.autograd.grad(g_loss, g_params),
                state.g_opt, state.g_sched)
 
@@ -121,3 +125,34 @@ def make_train_step(spec: GANSpec):
         return {**metrics, **g_metrics, "g_loss": g_loss.detach()}
 
     return train_step
+
+
+def _drawn_calls(spec: GANSpec, state, batch, images, z_critic, z_g, u_gp,
+                 labels_critic, labels_g):
+    """The critic and G loss calls of a family that draws z (and classes):
+    the critic fakes' draws come from ``d_noise`` now, the G update's from
+    ``g_noise`` when the G loss is called."""
+    n, dev, alpha = images.shape[1], images.device, state.alpha
+    nc = spec.num_classes
+    if z_critic is None:
+        z_critic = torch.randn(spec.n_critic, n, spec.z_dim, device=dev,
+                               generator=state.d_noise)
+    if nc and labels_critic is None:
+        labels_critic = torch.randint(0, nc, (spec.n_critic, n), device=dev,
+                                      generator=state.d_noise)
+    fakes = spec.prepare_fakes(z_critic, alpha, labels_critic)
+
+    def d_call(i, masks):
+        labels = (batch["label"][i], labels_critic[i]) if nc else None
+        return spec.d_loss(images[i], fakes[i], alpha, state.d_noise,
+                           None if u_gp is None else u_gp[i], labels, masks)
+
+    def g_call(masks):
+        z, labels = z_g, labels_g
+        if z is None:
+            z = torch.randn(n, spec.z_dim, device=dev, generator=state.g_noise)
+        if nc and labels is None:
+            labels = torch.randint(0, nc, (n,), device=dev, generator=state.g_noise)
+        return spec.g_loss(z, alpha, labels, state.g_noise, masks)
+
+    return d_call, g_call

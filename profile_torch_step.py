@@ -12,7 +12,9 @@ full width (1000 classes, batch 64, n_critic 5, bf16, EMA 0.9999) built by
 ``--model acgan``: the ACGAN CIFAR-10 step at full width (batch 100, bf16,
 bce, aux weight 1.0) built by ``train_acgan.build``. ``--num-classes N``
 with ``--model sngan``: the conditional CIFAR SNGAN (projection D, 12
-spectral-norm weights).
+spectral-norm weights). ``--model pix2pix``: the pix2pix step at full width
+(U-Net ngf 64 + PatchGAN ndf 64, 256x256, batch 1, bf16) built by
+``train_pix2pix.build``, on pairs rendered on the device (``device-fake``).
 
 Warms up, then traces a few steps with ``torch.profiler`` and prints: wall
 ms/step (timed without the profiler), device-busy ms/step (the sum of the
@@ -25,7 +27,7 @@ hand-written kernels) and the kernels with the most device time.
 The trace goes to ``chiprun_out/torch_step_trace_<model>.json``.
 
 Usage (on the machine with the card, from the repository root):
-    python3 profile_torch_step.py [--model sngan|pggan|sngan_imagenet|acgan]
+    python3 profile_torch_step.py [--model sngan|pggan|sngan_imagenet|acgan|pix2pix]
                                   [--num-classes N] [--steps 5] [--top 25]
 """
 
@@ -60,14 +62,15 @@ def main() -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from gan_lib_tensorflow_tpu_torch.cli import (common, train_acgan, train_pggan,
-                                                  train_sngan, train_sngan_imagenet)
+                                                  train_pix2pix, train_sngan,
+                                                  train_sngan_imagenet)
     from gan_lib_tensorflow_tpu_torch.ops import fadein
     from gan_lib_tensorflow_tpu_torch.ops import power_iteration as pi
     from gan_lib_tensorflow_tpu_torch.train import make_train_step
     from gan_lib_tensorflow_tpu_torch.train.pggan_loop import build_phase
 
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--model", choices=["sngan", "pggan", "sngan_imagenet", "acgan"],
+    p.add_argument("--model", choices=["sngan", "pggan", "sngan_imagenet", "acgan", "pix2pix"],
                    default="sngan")
     p.add_argument("--num-classes", type=int, default=0,
                    help="sngan: >0 profiles the conditional variant")
@@ -96,6 +99,10 @@ def main() -> None:
         g, _, spec, state = train_acgan.build(args)
         batches = iter(common.image_source(args, args.batch_size, 32, g.num_classes,
                                            n_micro=spec.n_critic))
+    elif opts.model == "pix2pix":
+        args = train_pix2pix.parse_args(["--data", "device-fake", "--device", "cuda"])
+        _, _, spec, state = train_pix2pix.build(args)
+        batches = iter(train_pix2pix.paired_source(args, n_micro=spec.n_critic))
     else:
         args = train_pggan.parse_args(["--data", "fake", "--device", "cuda"])
         ph = build_phase(train_pggan.ladder_config(args), 1024, "transition")

@@ -83,11 +83,13 @@ def test_import_leaves_jax_out():
         "import gan_lib_tensorflow_tpu_torch.cli.sample\n"
         "import gan_lib_tensorflow_tpu_torch.cli.train_acgan\n"
         "import gan_lib_tensorflow_tpu_torch.cli.train_pggan\n"
+        "import gan_lib_tensorflow_tpu_torch.cli.train_pix2pix\n"
         "import gan_lib_tensorflow_tpu_torch.cli.train_sngan\n"
         "import gan_lib_tensorflow_tpu_torch.cli.train_sngan_imagenet\n"
         "import gan_lib_tensorflow_tpu_torch.convert\n"
         "import gan_lib_tensorflow_tpu_torch.data.cifar10\n"
         "import gan_lib_tensorflow_tpu_torch.data.device_cache\n"
+        "import gan_lib_tensorflow_tpu_torch.data.fake\n"
         "import gan_lib_tensorflow_tpu_torch.data.imagenet\n"
         "import gan_lib_tensorflow_tpu_torch.data.packed\n"
         "import gan_lib_tensorflow_tpu_torch.data.pipeline\n"
@@ -95,12 +97,15 @@ def test_import_leaves_jax_out():
         "import gan_lib_tensorflow_tpu_torch.eval.inception_v3\n"
         "import gan_lib_tensorflow_tpu_torch.eval.metrics\n"
         "import gan_lib_tensorflow_tpu_torch.models.acgan\n"
+        "import gan_lib_tensorflow_tpu_torch.models.pix2pix\n"
         "import gan_lib_tensorflow_tpu_torch.models.sngan\n"
         "import gan_lib_tensorflow_tpu_torch.ops.fadein\n"
         "import gan_lib_tensorflow_tpu_torch.ops.power_iteration\n"
         "import gan_lib_tensorflow_tpu_torch.parallel.prefetch\n"
         "import gan_lib_tensorflow_tpu_torch.train.checkpoint\n"
+        "import gan_lib_tensorflow_tpu_torch.train.export\n"
         "import gan_lib_tensorflow_tpu_torch.utils\n"
+        "import gan_lib_tensorflow_tpu_torch.utils.html\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'gan_lib_tensorflow_tpu', "
         "'PIL', 'matplotlib', 'tensorboard')]\n"
