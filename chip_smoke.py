@@ -26,13 +26,15 @@ final line):
      float32 on the card against the CPU
   6. PGGAN main path: the ladder 4^2 -> 1024^2 at full width (Karras
      channels, z 512, Karras batch schedule, fused_scale D blocks from 128,
-     bf16) through the port's CLI parsing and ``train_pggan_ladder``, 2 steps
-     per phase (17 phases, 8 of them transitions); the fade-in kernel must
+     bf16) on reals rendered on the card (``--data device-fake``) through the
+     port's CLI parsing and ``train_pggan_ladder``, 2 steps per phase (17
+     phases, 8 of them transitions); the fade-in kernel must
      launch 6 times per transition step and never in a stabilize step, every
      logged metric must be finite, and every tensor shared across a
      migration must be carried bit-exact
   7. PGGAN 1024^2 transition phase at batch 4, built by the ladder's own
-     ``build_phase``: images/s, ms/step, peak memory; then full-width
+     ``build_phase``, on ``device-fake`` reals: images/s, ms/step, peak
+     memory; then full-width
      float32 G and D of the 64^2 transition stage on the card against the
      CPU (rtol 1e-3, atol 1e-3)
   8. kernel timing at the main paths' shapes: device time of CUDA-graph
@@ -52,8 +54,9 @@ final line):
      ``cli.evaluate`` with the random-init InceptionV3 at 5000 samples and
      5000 reals, then again from the cached real moments, to the last digit;
      samples/s of the eval passes; InceptionV3 on the card against the CPU;
-     (d) the PGGAN ladder to 64x64 at full width with per-phase checkpoints,
-     interrupted in the 64x64 transition and re-run to its end, the fade-in
+     (d) the PGGAN ladder to 64x64 at full width (``--data device-fake``)
+     with per-phase checkpoints, interrupted in the 64x64 transition and re-run
+     to its end, the fade-in
      kernel launched 6 times per transition step (and once per sample grid
      of a transition phase)
  10. data layer and north star (in a temporary directory): a synthetic
@@ -92,9 +95,38 @@ final line):
      CPU; the 12-weight launch's device time beside the 11-weight one, its
      plain version and its bound; ``cli.sample`` and ``cli.evaluate`` with
      ``--num-classes 10``
+ 13. pix2pix at full width (U-Net ngf 64 at 256^2, 30x30 PatchGAN ndf 64,
+     batch 1, bf16) from a 400-pair packed paired store at scale 286 held on
+     the card: 28 steps through ``train_pix2pix.main`` (ms/step, peak
+     memory), device batches bit-equal to the host jitter, a faulted run
+     resumed bit-equal (cuDNN deterministic), float32 G and D card vs CPU with
+     the same dropout masks, ``--mode test`` and ``--mode export`` (the
+     reloaded bundle against the eager translator); no kernel launch
+ 14. PGGAN to the end (in a temporary directory): (a) 64 ``rich`` images
+     rendered at 1024^2 by the host ``FakeImages``, mapped to uint8 and
+     written as a 9-level pyramid store (1024 ... 4) by ``write_pyramid``;
+     (b) ``train_pggan.main --data <pyramid>`` at full width, 2 steps per
+     phase, a checkpoint every step: each phase reads its own member, held on
+     the card, and the previous phase's store is released first; the fade-in
+     kernel launches 6 times per transition step, 0 per stabilize step (and
+     once per transition phase's sample grid); every metric finite; the
+     1024^2 transition's ms/step and peak memory; (c) a device batch of the
+     1024^2 member bit-equal to the host gather; (d) ``cli.evaluate --model
+     pggan`` at 1024^2 (640 samples, 256 SWD images per side) with reals from
+     the pyramid and from ``device-rich``, under torch's default TF32 flags
+     and deterministic cuDNN: the reference's record keys (7 SWD levels),
+     finite values, a repeat equal to the last digit; MS-SSIM pairs/s, SWD
+     images/s, peak memory; (e) ``ms_ssim`` and ``sliced_wasserstein`` on the
+     card against the CPU on the same images, descriptors and draws (rtol
+     1e-4); (f) ``cli.sample --export-dir`` on a mid-phase 1024^2 transition
+     checkpoint (alpha 0.5): G without the fade-in, 0 launches, the reloaded
+     bundle bit-equal to the eager sampler; (g) one 1024^2 transition step
+     with ``--remat-from 512`` and one without, from the same state and
+     batch: equal losses, the peak memory of each
 
 The power iteration's ``launches`` in the kernels' record are those of
-phase 5's SNGAN run and phase 12's conditional SNGAN run.
+phase 5's SNGAN run and phase 12's conditional SNGAN run; the fade-in's are
+those of phase 6's ladder and phase 14's ladder (b).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -150,6 +182,11 @@ IMAGENET_STORE = 3_200  # 10 fused steps of 5 x 64 images: an epoch ends inside 
 # full width, batch 1; 4 warm-up steps, then 24 timed
 PIX_PAIRS, PIX_SCALE, PIX_SIZE, PIX_WIDTH = 400, 286, 256, 64
 PIX_WARM, PIX_TIMED = 4, 24
+# PGGAN to the end (phase 14): a pyramid store of 64 rich images at 1024^2,
+# the ladder at full width from it, and the eval at 640 samples (64 MS-SSIM
+# pairs) with 256 images per side for SWD
+PGE_RES, PGE_IMAGES, PGE_WIDTH = 1024, 64, 1.0
+PGE_EVAL_SAMPLES, PGE_SWD_SAMPLES = 640, 256
 
 
 def nvidia_smi(fields: str) -> str:
@@ -543,7 +580,7 @@ def checkpoint_resume_eval(card: str, tmp: str) -> None:
             raise Interrupted()
 
     pg_args = train_pggan.parse_args([
-        "--data", "fake", "--device", "cuda", "--final-resolution", "64",
+        "--data", "device-fake", "--device", "cuda", "--final-resolution", "64",
         "--steps-per-phase", str(PGGAN_STEPS_PER_PHASE), "--log-every", "1",
         "--compute-dtype", "bf16", "--out-dir", os.path.join(tmp, "pggan"),
         "--ckpt-every", "1", "--sample-every", str(PGGAN_STEPS_PER_PHASE)])
@@ -1188,6 +1225,296 @@ def pix2pix_full_width(card: str, tmp: str) -> None:
     print(f"launches in the whole phase: power iteration {pi.launches}, fade-in {fd.launches}")
 
 
+def rich_pyramid(tmp: str) -> str:
+    """Phase 14 (a): ``PGE_IMAGES`` host ``rich`` images at ``PGE_RES``,
+    mapped to uint8 and written as a pyramid store ``PGE_RES`` ... 4."""
+    from gan_lib_tensorflow_tpu_torch.data import write_rich_pyramid
+    pyr = os.path.join(tmp, "pyramid")
+    t0 = time.perf_counter()
+    dirs = write_rich_pyramid(pyr, PGE_IMAGES, PGE_RES)
+    sizes = {r: os.path.getsize(os.path.join(d, "images.u8")) for r, d in dirs.items()}
+    check(sizes[PGE_RES] == PGE_IMAGES * PGE_RES * PGE_RES * 3
+          and list(sizes) == [PGE_RES >> i for i in range(int(math.log2(PGE_RES)) - 1)],
+          f"pyramid members {sizes}")
+    print(f"pyramid store: {PGE_IMAGES} rich images rendered by the host FakeImages at "
+          f"{PGE_RES}x{PGE_RES}, mapped to uint8 and written as {len(sizes)} members "
+          f"{PGE_RES} ... 4 in {time.perf_counter() - t0:.1f} s: the {PGE_RES}^2 member "
+          f"{sizes[PGE_RES]} bytes, the whole pyramid {sum(sizes.values())} bytes")
+    return pyr
+
+
+def pggan_to_the_end(card: str, tmp: str) -> int:
+    """Phase 14, in the temporary directory ``tmp``. Returns the fade-in
+    launches of the ladder run (b)."""
+    import gc
+    import weakref
+
+    import numpy as np
+    import torch
+    from gan_lib_tensorflow_tpu_torch import data
+    from gan_lib_tensorflow_tpu_torch.cli import evaluate, sample, train_pggan
+    from gan_lib_tensorflow_tpu_torch.eval import perceptual
+    from gan_lib_tensorflow_tpu_torch.ops import fadein as fd
+    from gan_lib_tensorflow_tpu_torch.ops import power_iteration as pi
+    from gan_lib_tensorflow_tpu_torch.train import (CheckpointManager, make_train_step,
+                                                    pggan_loop, to_checkpoint)
+    from gan_lib_tensorflow_tpu_torch.train.pggan_loop import DEFAULT_BATCH_BY_RES
+
+    pyr = rich_pyramid(tmp)
+
+    # (b) the ladder from the pyramid store, through the CLI
+    run = os.path.join(tmp, "ladder")
+    per_phase, logs, alive, released = [], [], [], []
+    inner_ladder, inner_sampler = train_pggan.train_pggan_ladder, pggan_loop._phase_sampler
+
+    def hook(when, res, name, st):
+        if when == "start":
+            released.append(all(ref() is None for ref in alive))
+            if (res, name) == (PGE_RES, "transition"):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            per_phase.append({"res": res, "name": name, "fd": fd.launches, "pi": pi.launches,
+                              "grid": 0, "t0": time.perf_counter()})
+        else:
+            torch.cuda.synchronize()
+            rec = per_phase[-1]
+            rec["fd"], rec["pi"] = fd.launches - rec["fd"], pi.launches - rec["pi"]
+            rec["s"] = time.perf_counter() - rec.pop("t0")
+            rec["peak"] = torch.cuda.max_memory_allocated()
+
+    def ladder(cfg, factory, **kw):
+        def recording(res, batch):
+            src = factory(res, batch)
+            per_phase[-1]["path"] = src.path
+            per_phase[-1]["resident"] = (src.nbytes_resident() if isinstance(
+                src, data.DeviceCachedStore) else 0)
+            alive.append(weakref.ref(src))
+            return src
+        return inner_ladder(cfg, recording, phase_hook=hook,
+                            log_fn=lambda it, m: logs.append(m))
+
+    def counting_sampler(cfg, ph, phase_dir):
+        fn = inner_sampler(cfg, ph, phase_dir)
+
+        def grid(state, it):
+            before = fd.launches
+            fn(state, it)
+            per_phase[-1]["grid"] += fd.launches - before
+        return grid
+
+    args = ["--data", pyr, "--device", "cuda", "--final-resolution", str(PGE_RES),
+            "--width-mul", str(PGE_WIDTH), "--steps-per-phase", str(PGGAN_STEPS_PER_PHASE),
+            "--log-every", "1", "--compute-dtype", "bf16", "--ckpt-every", "1",
+            "--sample-every", "1000", "--out-dir", run]
+    train_pggan.train_pggan_ladder, pggan_loop._phase_sampler = ladder, counting_sampler
+    fd.launches = pi.launches = 0  # count this path's launches only
+    t0 = time.perf_counter()
+    try:
+        final = train_pggan.main(args)
+        torch.cuda.synchronize()
+    finally:
+        train_pggan.train_pggan_ladder, pggan_loop._phase_sampler = inner_ladder, inner_sampler
+    ladder_s, launches = time.perf_counter() - t0, fd.launches
+    check(pi.launches == 0, f"the ladder launched the power iteration {pi.launches} times")
+    n_phases = 2 * int(math.log2(PGE_RES)) - 3
+    check(len(per_phase) == n_phases and final.step == PGGAN_STEPS_PER_PHASE
+          and final.alpha == 1.0, f"{len(per_phase)} phases, want {n_phases}")
+    for rec in per_phase:
+        trans = rec["name"] == "transition"
+        steps_fd = rec["fd"] - rec["grid"]
+        want = 6 * PGGAN_STEPS_PER_PHASE if trans else 0
+        r = rec["res"]
+        print(f"  {r:4d}x{r:<4d} {rec['name']:10s} read {os.path.relpath(rec['path'], tmp)} "
+              + (f"held on the card ({rec['resident']} bytes resident)" if rec["resident"]
+                 else "streamed")
+              + f", fade-in launches {steps_fd} in the steps (want {want}) + {rec['grid']} "
+              f"in the sample grid, {rec['s']:.2f} s")
+        check(rec["path"] == os.path.join(pyr, f"r{r:04d}") and rec["resident"] > 0,
+              f"{r}x{r} {rec['name']} read {rec['path']} ({rec['resident']} bytes resident)")
+        check(steps_fd == want and rec["grid"] == (1 if trans else 0),
+              f"{r}x{r} {rec['name']}: {steps_fd} fade-in launches in its steps, want {want}")
+    check(all(released[1:]), f"a phase's store outlived its phase: {released}")
+    step_launches = sum(rec["fd"] - rec["grid"] for rec in per_phase)
+    check(step_launches == 6 * PGGAN_STEPS_PER_PHASE * (n_phases // 2),
+          f"{step_launches} fade-in launches in the ladder's steps")
+    check(len(logs) == n_phases * PGGAN_STEPS_PER_PHASE and all(
+        math.isfinite(v) for m in logs for v in m.values()), "non-finite ladder metrics")
+    top = next(rec for rec in per_phase if (rec["res"], rec["name"]) == (PGE_RES, "transition"))
+    top_dir = os.path.join(run, f"{PGE_RES}x{PGE_RES}_transition")
+    sps = last_sec_per_step(top_dir)
+    print(f"ladder 4x4 -> {PGE_RES}x{PGE_RES} from the pyramid store (full width, bf16, "
+          f"checkpoints every step): {len(per_phase)} phases in {ladder_s:.1f} s, fade-in "
+          f"launches {launches} ({step_launches} in the steps: 6 per transition step, 0 per "
+          f"stabilize step; {launches - step_launches} in the transition phases' sample "
+          f"grids); every store released before the next phase's; the {PGE_RES}x{PGE_RES} "
+          f"transition phase {1e3 * sps:.2f} ms/step (its step 2, the step-1 checkpoint's "
+          f"copy to the host included), peak memory "
+          f"{top['peak'] / 2**20:.0f} MiB  [{card}]")
+
+    # (c) a device batch of the top member against the host gather
+    member = os.path.join(pyr, f"r{PGE_RES:04d}")
+    cache = data.DeviceCachedStore(member, batch_size=4, seed=0, device="cuda")
+    host = data.PackedImageStore(member, batch_size=4)
+    for pos in (0, 17):
+        idx = cache.indices_for(pos)
+        got = cache.gather(idx)["image"].cpu().numpy()
+        want = data.base.normalize_u8_np(np.asarray(host.images[idx]))
+        check(np.array_equal(got.view(np.uint32), want.view(np.uint32)),
+              f"device batch {pos} of the {PGE_RES}^2 member differs from the host gather")
+    print(f"device batches at positions 0 and 17 of the {PGE_RES}^2 member "
+          f"({cache.nbytes_resident()} bytes resident) bit-equal to the host gather of the "
+          f"same indices_for(pos)")
+    del cache
+
+    # (d) the eval, under torch's default TF32 flags and deterministic cuDNN
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    ms_times, inner_ms = [], perceptual.ms_ssim_diversity
+    timed_calls(perceptual, "ms_ssim_diversity", ms_times)
+    levels = [f"swd_{PGE_RES >> i}" for i in range(int(math.log2(PGE_RES // 16)) + 1)]
+    keys = (["ms_ssim", "ms_ssim_std", "ms_ssim_pairs", "step", "resolution"] + levels
+            + ["swd_avg", "swd_desc_dtype", "swd_images", "swd_seconds", "swd_peak_hbm_gb"])
+    ckpt_dir = os.path.join(run, f"{PGE_RES}x{PGE_RES}_stabilize", "ckpt")
+    try:
+        for source in (pyr, "device-rich"):
+            recs = []
+            for _ in range(2):
+                recs.append(evaluate.main([
+                    "--model", "pggan", "--resolution", str(PGE_RES), "--width-mul",
+                    str(PGE_WIDTH), "--ckpt-dir", ckpt_dir, "--data", source,
+                    "--n-samples", str(PGE_EVAL_SAMPLES), "--swd-samples",
+                    str(PGE_SWD_SAMPLES), "--batch-size", "16", "--device", "cuda"]))
+            rec, again = recs
+            check(list(rec) == keys, f"eval record keys {list(rec)}, want {keys}")
+            check(rec["swd_desc_dtype"] == "float16" and 0 <= rec["ms_ssim"] <= 1
+                  and rec["ms_ssim_pairs"] > 0 and rec["swd_images"] > 0
+                  and all(math.isfinite(rec[k]) for k in keys if k != "swd_desc_dtype"),
+                  f"eval record {rec}")
+            same = {k: v for k, v in rec.items() if k != "swd_seconds"}
+            check(same == {k: v for k, v in again.items() if k != "swd_seconds"},
+                  f"the repeated eval differs: {rec} vs {again}")
+            ms_s = ms_times[-1]
+            name = "the pyramid store" if source == pyr else source
+            print(f"cli.evaluate --model pggan at {PGE_RES}^2, reals from {name}: "
+                  + json.dumps(rec) + f"; the repeat agrees in every digit (cuDNN "
+                  f"deterministic); MS-SSIM {rec['ms_ssim_pairs'] / ms_s:.1f} pairs/s "
+                  f"({ms_s:.2f} s), SWD {rec['swd_images'] / rec['swd_seconds']:.1f} images/s "
+                  f"per side ({rec['swd_seconds']} s), peak {rec['swd_peak_hbm_gb']} GiB; "
+                  f"TF32 flags at torch's defaults  [{card}]")
+
+        # (e) card vs CPU under the same flags: MS-SSIM on images at the top
+        # resolution, SWD on the top level's descriptors, the same draws
+        gen = torch.Generator().manual_seed(5)
+        reals = next(iter(data.open_pyramid(pyr, 4, PGE_RES)))["image"]
+        a = torch.from_numpy(reals)
+        b = (a * 0.8 + 0.2 * torch.rand(a.shape, generator=gen) - 0.1).clamp(-1, 1)
+        ms_gpu = perceptual.ms_ssim(a.cuda(), b.cuda()).cpu()
+        ms_cpu = perceptual.ms_ssim(a, b)
+        torch.testing.assert_close(ms_gpu, ms_cpu, rtol=1e-4, atol=0.0)
+        draws = perceptual.SWDDraws(seed=6)
+        descs = []
+        for imgs in (a, b):
+            lap = perceptual.laplacian_pyramid(imgs.cuda(), 2)[0]
+            y0, x0 = draws.patch_origins("real", 0, *lap.shape[:3], 128, 7)
+            descs.append(perceptual._normalize_descriptors(
+                perceptual._patch_descriptors(lap, y0, x0, 7), 7, 3))
+        normals = draws.directions(147, 512)
+        sw_gpu = perceptual.sliced_wasserstein(descs[0], descs[1], normals).cpu()
+        sw_cpu = perceptual.sliced_wasserstein(descs[0].cpu(), descs[1].cpu(), normals)
+        torch.testing.assert_close(sw_gpu, sw_cpu, rtol=1e-4, atol=0.0)
+        print(f"card vs CPU, TF32 flags at torch's defaults (cudnn True, matmul False): "
+              f"ms_ssim of 4 pairs at {PGE_RES}^2 max rel err "
+              f"{float(((ms_gpu - ms_cpu).abs() / ms_cpu.abs()).max()):.3e}; "
+              f"sliced_wasserstein of the {PGE_RES}^2 level's {descs[0].shape[0]} float16 "
+              f"descriptors per side, 512 directions, {float(sw_gpu)!r} vs {float(sw_cpu)!r} "
+              f"(rel err {float((sw_gpu - sw_cpu).abs() / sw_cpu.abs()):.3e}); rtol 1e-4")
+        del descs
+
+        # (f) sample and export a mid-phase checkpoint of the top transition
+        mid = os.path.join(tmp, "mid_ckpt")
+        os.makedirs(mid)
+        shutil.copy(os.path.join(top_dir, "ckpt", "step_000001.pt"), mid)
+        alpha = float(CheckpointManager(mid).restore_latest_raw()["alpha"])
+        check(alpha < 1.0, f"the mid-phase checkpoint's alpha is {alpha}")
+        bundle_dir, exports, exports_inner = os.path.join(tmp, "export"), [], sample.export_generator
+        timed_calls(sample, "export_generator", exports)
+        before = fd.launches
+        try:
+            eager = sample.main(["--model", "pggan", "--resolution", str(PGE_RES),
+                                 "--width-mul", str(PGE_WIDTH), "--ckpt-dir", mid,
+                                 "--n", "4", "--out", os.path.join(tmp, "pg.png"),
+                                 "--device", "cuda", "--export-dir", bundle_dir])
+        finally:
+            sample.export_generator = exports_inner
+        torch.cuda.synchronize()
+        check(fd.launches == before, f"sampling and export launched the fade-in "
+                                     f"{fd.launches - before} times")
+        z = torch.randn(4, 512, generator=torch.Generator().manual_seed(0)).cuda()
+        with torch.no_grad():
+            served = torch.export.load(os.path.join(bundle_dir, "generator.pt2")).module()(z)
+        torch.cuda.synchronize()
+        check(fd.launches == before, "the reloaded bundle launched the fade-in")
+        check(tuple(served.shape) == (4, PGE_RES, PGE_RES, 3) and torch.equal(served, eager),
+              f"the reloaded bundle differs from the eager sampler by "
+              f"{float((served - eager).abs().max())}")
+        n_bytes = sum(os.path.getsize(os.path.join(bundle_dir, f))
+                      for f in os.listdir(bundle_dir))
+        print(f"cli.sample --export-dir on the {PGE_RES}^2 transition checkpoint at alpha "
+              f"{alpha} (G without the fade-in, as the reference samples it): 0 fade-in "
+              f"launches in sampling, export and the reloaded bundle; the bundle "
+              f"({n_bytes} bytes: checkpoint + generator.pt2, "
+              f"{os.path.getsize(os.path.join(bundle_dir, 'generator.pt2'))} of them) "
+              f"reloaded on the card bit-equal to the eager sampler; export "
+              f"{exports[0]:.1f} s  [{card}]")
+    finally:
+        perceptual.ms_ssim_diversity = inner_ms
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+    # (g) one top transition step with --remat-from PGE_RES // 2 and one
+    # without, from the same state and batch (cuDNN still deterministic)
+    try:
+        top_ckpt = CheckpointManager(os.path.join(top_dir, "ckpt"))
+        top_batch = DEFAULT_BATCH_BY_RES[PGE_RES]
+        batch = next(iter(data.DeviceCachedStore(member, batch_size=top_batch, seed=0,
+                                                 device="cuda")))
+        results = {}
+        for remat in (0, PGE_RES // 2):
+            a_args = train_pggan.parse_args(args + ["--remat-from", str(remat)])
+            ph = pggan_loop.build_phase(train_pggan.ladder_config(a_args), PGE_RES,
+                                        "transition")
+            check(top_ckpt.restore_latest(ph.state) is not None, "no top checkpoint")
+            ph.state.alpha = 0.5
+            step = make_train_step(ph.spec)
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            metrics = step(ph.state, batch)
+            metrics = {k: float(v) for k, v in metrics.items()}
+            torch.cuda.synchronize()
+            results[remat] = (metrics, time.perf_counter() - t0,
+                              torch.cuda.max_memory_allocated() - base,
+                              to_checkpoint(ph.state))
+            del ph, step
+        (m0, s0, p0, c0), (m1, s1, p1, c1) = results[0], results[PGE_RES // 2]
+        diff = max(float((c0[k][n].float() - c1[k][n].float()).abs().max())
+                   for k in ("g", "d") for n in c0[k])
+        top_ckpt.close()
+        check(m0 == m1, f"--remat-from {PGE_RES // 2} changed the losses: {m1} vs {m0}")
+        check(p1 < p0, f"--remat-from {PGE_RES // 2} did not lower the peak: {p1} vs {p0}")
+        print(f"one {PGE_RES}^2 transition step (batch {top_batch}) from the same state "
+              f"and batch: losses {m0} without remat and with --remat-from {PGE_RES // 2} "
+              f"bit-equal; G and D after the step differ by at most {diff!r}; peak memory "
+              f"above the state {p0 / 2**20:.0f} MiB without, {p1 / 2**20:.0f} MiB with "
+              f"({100 * (1 - p1 / p0):.1f}% less); {1e3 * s0:.1f} and {1e3 * s1:.1f} ms "
+              f"(first steps, with their cuDNN set-up)  [{card}]")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -1310,7 +1637,7 @@ def main() -> None:
 
     phase("6 PGGAN main path: ladder 4x4 -> 1024x1024")
     pg_args = train_pggan.parse_args([
-        "--data", "fake", "--device", "cuda", "--final-resolution", "1024",
+        "--data", "device-fake", "--device", "cuda", "--final-resolution", "1024",
         "--steps-per-phase", str(PGGAN_STEPS_PER_PHASE), "--log-every", "1",
         "--compute-dtype", "bf16"])
     cfg = train_pggan.ladder_config(pg_args)
@@ -1514,6 +1841,15 @@ def main() -> None:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 13: {time.perf_counter() - t13:.1f} s  [{card}]")
 
+    phase("14 PGGAN to the end: pyramid store, ladder, SWD/MS-SSIM eval, export, remat")
+    t14 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        pyramid_launches = pggan_to_the_end(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 14: {time.perf_counter() - t14:.1f} s  [{card}]")
+
     print(json.dumps({"kernels": [{
         "name": "batched_power_iteration",
         "route": "cuda",
@@ -1531,7 +1867,7 @@ def main() -> None:
         "route": "cuda",
         "source": "gan_lib_tensorflow_tpu_torch/csrc/fadein_blend.cu",
         "replaces": "gan_lib_tensorflow_tpu/ops/pallas_kernels.py:122",
-        "launches": ladder_launches,
+        "launches": ladder_launches + pyramid_launches,
         "max_abs_err": fade_err,
         "ms": fade["ms"],
         "plain_ms": fade["plain_ms"],

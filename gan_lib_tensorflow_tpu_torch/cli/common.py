@@ -20,13 +20,13 @@ DATA_HELP = ("data backend: 'auto' (real CIFAR-10 when it is found, else "
              "store or a cifar-10-batches-py directory, which must resolve")
 
 
-def base_parser(description: str) -> argparse.ArgumentParser:
+def base_parser(description: str, data_help: str = DATA_HELP) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--steps", type=int, default=100_000, help="total G steps")
     p.add_argument("--batch-size", type=int, default=64)
     p.add_argument("--lr", type=float, default=2e-4)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--data", default="auto", help=DATA_HELP)
+    p.add_argument("--data", default="auto", help=data_help)
     p.add_argument("--device-cache", default="auto", choices=["auto", "on", "off"],
                    help="hold real-data stores resident on the card and ship only "
                         "each step's indices (auto: when the store fits "
@@ -45,6 +45,18 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device; without CUDA only 'cpu' runs")
     return p
+
+
+def refuse_image_folder(p: argparse.ArgumentParser, path: str, prepack_flag: str,
+                        members=()) -> None:
+    """Exit 2 through ``p.error`` when ``path`` is a directory that is no
+    packed store, and none of its ``members`` is one: image folders are
+    decoded with Pillow, which this package does not use."""
+    if os.path.isdir(path) and not any(
+            data.is_packed_dir(os.path.join(path, m)) for m in ("", *members)):
+        p.error(f"--data {path}: not a packed store; image folders are decoded "
+                "with Pillow, which this package does not use: pack it first with "
+                f"tools/prepack_dataset.py {prepack_flag}")
 
 
 def compute_dtype(args) -> Optional[torch.dtype]:

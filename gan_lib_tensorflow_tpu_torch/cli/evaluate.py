@@ -1,9 +1,12 @@
-"""IS/FID evaluation entry point (port of the ``--model sngan``,
-``--model imagenet`` and ``--model acgan`` branches of
-``gan_lib_tensorflow_tpu/cli/evaluate.py``): restore the newest checkpoint,
-generate ``--n-samples`` samples (EMA parameters when the checkpoint has
-them; a conditional G cycles its classes), IS over 10 splits and FID
-against the real moments; prints one JSON line.
+"""Evaluation entry point (port of ``gan_lib_tensorflow_tpu/cli/evaluate.py``):
+restore the newest checkpoint and print one JSON line. ``--model sngan``,
+``imagenet``, ``acgan``: generate ``--n-samples`` samples (EMA parameters
+when the checkpoint has them; a conditional G cycles its classes), IS over
+10 splits and FID against the real moments. ``--model pggan``: Karras's
+MS-SSIM diversity over generated pairs, and SWD per Laplacian-pyramid level
+against reals when --data resolves to them (a pyramid or single packed
+store of --resolution, or 'device-rich'/'device-fake' rendered on the card;
+'auto' gives MS-SSIM alone; an image folder is refused: pack it first).
 
 Usage:
   python -m gan_lib_tensorflow_tpu_torch.cli.evaluate --model sngan \\
@@ -13,6 +16,9 @@ Usage:
       --ckpt-dir runs/imagenet/ckpt --data runs/imagenet128_store
   python -m gan_lib_tensorflow_tpu_torch.cli.evaluate --model acgan \\
       --ckpt-dir runs/acgan/ckpt --n-samples 10000
+  python -m gan_lib_tensorflow_tpu_torch.cli.evaluate --model pggan \\
+      --ckpt-dir runs/pggan/1024x1024_stabilize/ckpt --resolution 1024 \\
+      --data <pyramid store> [--swd-samples 16384]
 
 Without --inception-weights a seed-fixed random-init InceptionV3 is used:
 comparisons across checkpoints of one run hold, absolute values are not
@@ -27,28 +33,26 @@ import argparse
 import json
 import os
 import sys
+import time
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .. import data, resolve_device
-from ..eval import compute_statistics, evaluate_generator
+from ..eval import compute_statistics, evaluate_generator, perceptual
 from ..eval.inception_v3 import InceptionV3Features
-from ..models import acgan, sngan
+from ..models import acgan, pggan, sngan
 from ..parallel import prefetch_to_device
 from ..train import CheckpointManager, eval_state_from_raw
-
-# the reference's other families, and the ROADMAP.md item that ports each
-_NOT_PORTED = {
-    "pggan": "Queue 1 item 3(a) (PGGAN's SWD and MS-SSIM)",
-}
+from . import common
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--model", default="sngan",
-                   choices=["sngan", "imagenet", "sngan_imagenet", "acgan", *_NOT_PORTED])
+                   choices=["sngan", "imagenet", "sngan_imagenet", "acgan", "pggan"])
     p.add_argument("--ckpt-dir", required=True)
     p.add_argument("--n-samples", type=int, default=50_000)
     p.add_argument("--batch-size", type=int, default=100)
@@ -56,7 +60,9 @@ def parse_args(argv=None):
                    help="real-data source for FID: 'auto' (CIFAR-10 when found "
                         "and the model is 32^2, else synthetic), 'cifar10', "
                         "'fake' (synthetic blobs rendered on the device), or a "
-                        "PATH (packed store, or a CIFAR-10 directory at 32^2)")
+                        "PATH (packed store, or a CIFAR-10 directory at 32^2); "
+                        "for SWD (pggan): a pyramid or packed store, "
+                        "'device-rich' or 'device-fake'")
     p.add_argument("--n-real", type=int, default=10_000)
     p.add_argument("--inception-weights", default=None)
     p.add_argument("--real-stats-npz", default=None,
@@ -66,23 +72,28 @@ def parse_args(argv=None):
                    help="sngan: classes of the conditional G (0 = unconditional); "
                         "imagenet: its classes (0 = 1000)")
     p.add_argument("--width-mul", type=float, default=1.0,
-                   help="imagenet: the channel-width multiplier it was trained with")
+                   help="pggan/imagenet: the channel-width multiplier it was trained with")
+    p.add_argument("--resolution", type=int, default=64, help="pggan only")
+    p.add_argument("--swd-samples", type=int, default=None,
+                   help="pggan only: images per side for SWD (default "
+                        "n_samples//10; Karras scale = 16384)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out-json", default=None,
                    help="also write the result record to this file")
     p.add_argument("--device", default="cuda",
                    help="torch device; without CUDA only 'cpu' runs")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.model == "pggan":
+        common.refuse_image_folder(p, args.data, "--resolutions",
+                                   [f"r{args.resolution:04d}"])
+    return args
 
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
     if args.model == "sngan_imagenet":  # cli.sample's name for the family
         args.model = "imagenet"
-    if args.model in _NOT_PORTED:
-        raise SystemExit(f"--model {args.model}: eval of this family is not ported "
-                         f"yet; ROADMAP.md {_NOT_PORTED[args.model]} brings it")
-    out = eval_is_fid(args)
+    out = eval_pggan(args) if args.model == "pggan" else eval_is_fid(args)
     line = json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
                        for k, v in out.items()})
     print(line, flush=True)
@@ -168,12 +179,16 @@ def real_image_batches(args, device, image_size: int):
     return (b["image"] for b in host(src)), args.data
 
 
-def eval_is_fid(args) -> dict:
-    dev = resolve_device(args.device)
+def _restore(args, dev):
     raw = CheckpointManager(args.ckpt_dir).restore_latest_raw(map_location=dev)
     if raw is None:
         raise FileNotFoundError(f"no checkpoint under {args.ckpt_dir}")
-    state = eval_state_from_raw(raw)
+    return eval_state_from_raw(raw)
+
+
+def eval_is_fid(args) -> dict:
+    dev = resolve_device(args.device)
+    state = _restore(args, dev)
     net = InceptionV3Features(params_npz=args.inception_weights, device=dev)
     # a conditional G's samples cycle its classes (reference evaluate.py:180-196)
     if args.model == "imagenet":
@@ -203,6 +218,75 @@ def eval_is_fid(args) -> dict:
     out["extractor"] = _extractor_name(args)
     out["real_source"] = real_source
     return out
+
+
+def eval_pggan(args) -> dict:
+    """Karras's PGGAN eval (reference ``evaluate.py:217-289``): MS-SSIM over
+    ``max(n_samples // 10, bs)`` generated pairs, then SWD per pyramid level
+    against ``--swd-samples`` reals when --data resolves to them. G is built
+    as the reference's sampler builds it, without the fade-in
+    (``pggan.sampling_state``)."""
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    state = pggan.sampling_state(_restore(args, dev), args.resolution)
+    g = pggan.PGGANGenerator(resolution=args.resolution, width_mul=args.width_mul,
+                             z_dim=state.g["dense_4.weight"].shape[1])
+    g.load_state_dict(state.g)
+    g.to(dev)
+    sampler = pggan.make_sampler(g)
+    bs = min(args.batch_size, 16)
+
+    def sample_fn(gen: torch.Generator, n: int):
+        return lambda: sampler(state, torch.randn(n, g.z_dim, generator=gen).to(dev))
+
+    n_pairs = max(args.n_samples // 10, bs)
+    with record_function("pggan_eval.ms_ssim"):
+        ms_mean, ms_std = perceptual.ms_ssim_diversity(
+            sample_fn(torch.Generator().manual_seed(args.seed), 2 * bs), n_pairs,
+            batch_size=bs)
+    out = {"ms_ssim": ms_mean, "ms_ssim_std": ms_std,
+           "ms_ssim_pairs": (n_pairs // bs) * bs,
+           "step": state.step, "resolution": args.resolution}
+
+    real = None
+    if os.path.isdir(args.data):
+        store = data.open_pyramid(args.data, batch_size=bs, resolution=args.resolution,
+                                  seed=args.seed, wire_dtype="uint8")
+        real = (b["image"] for b in prefetch_to_device(iter(store), dev))
+    elif args.data in ("device-rich", "device-fake"):
+        # reals rendered on the card at the eval's resolution: a 16,384-image
+        # real side at 1024^2 would be a 51 GB store
+        render = data.DeviceFakeImages(
+            batch_size=bs, image_size=args.resolution, num_classes=1, seed=args.seed,
+            style="rich" if args.data == "device-rich" else "blobs", device=dev)
+        real = (b["image"][0] for b in render)
+    elif args.data != "auto":
+        print(f"note: --data {args.data!r} is not a directory; skipping SWD "
+              "(MS-SSIM only)", flush=True)
+    if real is not None:
+        n_b = max((args.swd_samples or max(args.n_samples // 10, bs)) // bs, 1)
+        # the fakes one batch at a time: held all at once, 16,384 of them at
+        # 1024^2 would be 206 GB
+        fake = sample_fn(torch.Generator().manual_seed(args.seed + 1), bs)
+        t0 = time.perf_counter()
+        out.update(perceptual.swd_pyramid(_in_range("swd.reals", lambda: next(real), n_b),
+                                          _in_range("swd.fakes", fake, n_b),
+                                          resolution=args.resolution, seed=args.seed))
+        out["swd_images"] = n_b * bs
+        out["swd_seconds"] = round(time.perf_counter() - t0, 2)
+        if dev.type == "cuda":
+            out["swd_peak_hbm_gb"] = round(torch.cuda.max_memory_allocated(dev) / 2**30, 3)
+    return out
+
+
+def _in_range(name: str, make, n: int):
+    """``n`` results of ``make()``, each made inside the profiler range
+    ``name`` (the range closes before the consumer takes the result)."""
+    for _ in range(n):
+        with record_function(name):
+            x = make()
+        yield x
 
 
 if __name__ == "__main__":

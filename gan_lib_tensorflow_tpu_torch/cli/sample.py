@@ -14,11 +14,10 @@ Usage:
       --ckpt-dir runs/acgan/ckpt --n 100
 
 A conditional G (``sngan_imagenet``, ``acgan``, ``sngan --num-classes N``)
-samples the classes ``arange(n) % num_classes``.
-
-The PGGAN export is not ported: its G calls the fade-in kernel's ctypes
-launch, which ``torch.export`` cannot trace, so ``--model pggan
---export-dir`` exits with code 2.
+samples the classes ``arange(n) % num_classes``. A PGGAN G is built without
+the fade-in, as the reference builds it: a transition checkpoint samples
+(and exports) as G at alpha 1 without its second toRGB, whatever its alpha
+(``pggan.sampling_state``).
 """
 
 from __future__ import annotations
@@ -55,17 +54,14 @@ def parse_args(argv=None):
                    help="torch device; without CUDA only 'cpu' runs")
     p.add_argument("--export-dir", default=None,
                    help="also write the serving bundle (checkpoint + generator.pt2) here")
-    args = p.parse_args(argv)
-    if args.export_dir and args.model == "pggan":
-        p.error("--export-dir: the PGGAN export is not ported (its fade-in kernel's "
-                "ctypes launch cannot be traced by torch.export)")
-    return args
+    return p.parse_args(argv)
 
 
 class SamplerModule(nn.Module):
-    """The sampler as a module of z alone, for the export: G at
-    ``train=False`` on the classes ``arange(n) % num_classes`` of a
-    conditional G (a buffer), None otherwise."""
+    """The sampler as a module of z alone, for the export: a PGGAN G as it
+    is (no fade-in, so no alpha); any other G at ``train=False`` on the
+    classes ``arange(n) % num_classes`` of a conditional G (a buffer), None
+    otherwise."""
 
     def __init__(self, g: nn.Module, n: int):
         super().__init__()
@@ -74,13 +70,14 @@ class SamplerModule(nn.Module):
         self.register_buffer("labels", torch.arange(n) % nc if nc else None)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
+        if isinstance(self.g, pggan.PGGANGenerator):
+            return self.g(z)
         return self.g(z, self.labels, train=False)
 
 
 def build_generator(args, g_state: dict):
-    """The generator a checkpoint of ``--model`` was trained with. A PGGAN
-    checkpoint of a transition phase carries the fade-in's second toRGB; its
-    first Dense (``[out, z_dim]``) gives the latent width."""
+    """The generator that samples a checkpoint of ``--model``; a PGGAN G's
+    first Dense (``[out, z_dim]``) gives its latent width."""
     if args.model == "sngan":
         return sngan.make_sampler, sngan.cifar_generator(num_classes=args.num_classes)
     if args.model == "acgan":
@@ -88,37 +85,42 @@ def build_generator(args, g_state: dict):
     if args.model in ("sngan_imagenet", "imagenet"):
         return sngan.make_sampler, sngan.imagenet128_generator(
             num_classes=args.num_classes or 1000, width_mul=args.width_mul)
-    fade = f"torgb_{args.resolution // 2}.weight" in g_state
     return pggan.make_sampler, pggan.PGGANGenerator(
-        resolution=args.resolution, fade_in=fade,
-        z_dim=g_state["dense_4.weight"].shape[1], width_mul=args.width_mul)
+        resolution=args.resolution, z_dim=g_state["dense_4.weight"].shape[1],
+        width_mul=args.width_mul)
 
 
-def main(argv=None):
+def main(argv=None) -> torch.Tensor:
+    """Writes the grid (and the bundle); returns the samples."""
     args = parse_args(argv)
     dev = resolve_device(args.device)
     raw = CheckpointManager(args.ckpt_dir).restore_latest_raw(map_location=dev)
     if raw is None:
         raise FileNotFoundError(f"no checkpoint under {args.ckpt_dir}")
     state = eval_state_from_raw(raw)
+    sampled = (pggan.sampling_state(state, args.resolution) if args.model == "pggan"
+               else state)
     make_sampler, g = build_generator(args, state.g)
-    g.load_state_dict(state.g)
+    g.load_state_dict(sampled.g)
     g.to(dev)
     z = torch.randn(args.n, g.z_dim, generator=torch.Generator().manual_seed(args.seed))
-    imgs = make_sampler(g)(state, z.to(dev))
+    imgs = make_sampler(g)(sampled, z.to(dev))
     save_image_grid(imgs.cpu().numpy(), args.out)
     print(f"wrote {args.n} samples (step {state.step}) to {args.out}", flush=True)
     if args.export_dir:
-        export_generator(args, g, state, dev)
+        export_generator(args, g, state, sampled, dev)
+    return imgs
 
 
-def export_generator(args, g, state, dev) -> str:
-    """The serving bundle of the sampler: EMA parameters where the
-    checkpoint has them (G's own otherwise) with G's buffers, as sampled."""
+def export_generator(args, g, state, sampled, dev) -> str:
+    """The serving bundle of the sampler: the checkpoint's G and EMA
+    parameters and alpha in the payload; G in the module with the
+    parameters it samples with (``sampled``: EMA where the checkpoint has
+    them, G's own otherwise) and its buffers."""
     payload = {"g": state.g, "alpha": state.alpha}
     if state.ema_params is not None:
         payload["ema_params"] = state.ema_params
-        g.load_state_dict({**state.g, **state.ema_params})
+        g.load_state_dict({**sampled.g, **sampled.ema_params})
     return write_serving_bundle(args.export_dir, state.step, payload,
                                 SamplerModule(g, args.n).to(dev),
                                 torch.zeros(args.n, g.z_dim, device=dev))

@@ -71,11 +71,8 @@ def parse_args(argv=None):
     if args.scale_size < args.image_size:
         p.error(f"--scale-size {args.scale_size} must be >= --image-size "
                 f"{args.image_size} (resize-then-crop jitter)")
-    if (args.data not in SYNTHETIC and os.path.isdir(args.data)
-            and not data.is_packed_dir(args.data)):
-        p.error(f"--data {args.data}: not a packed store; image folders are decoded "
-                "with Pillow, which this package does not use: pack it first with "
-                "tools/prepack_dataset.py --paired")
+    if args.data not in SYNTHETIC:
+        common.refuse_image_folder(p, args.data, "--paired")
     return args
 
 

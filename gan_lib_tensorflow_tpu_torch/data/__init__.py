@@ -2,13 +2,17 @@ from .base import DataSource, microbatch_stack, normalize_u8
 from .cifar10 import Cifar10, find_cifar10
 from .device_cache import (DeviceCachedPairedStore, DeviceCachedStore,
                            packed_paired_training_source, packed_training_source)
-from .fake import DeviceFakeImages, DeviceFakePairedImages, FakePairedImages
+from .fake import DeviceFakeImages, DeviceFakePairedImages, FakeImages, FakePairedImages
 from .imagenet import ImageNetNpz
-from .packed import PackedImageStore, PackedPairedStore, is_packed_dir
+from .multires import MultiResolution, box_downsample
+from .packed import (PackedImageStore, PackedPairedStore, is_packed_dir, open_pyramid,
+                     resolve_pyramid_dir, write_pyramid, write_rich_pyramid)
 from .pipeline import ThreadedSource
 
 __all__ = ["Cifar10", "DataSource", "DeviceCachedPairedStore", "DeviceCachedStore",
-           "DeviceFakeImages", "DeviceFakePairedImages", "FakePairedImages",
-           "ImageNetNpz", "PackedImageStore", "PackedPairedStore", "ThreadedSource",
-           "find_cifar10", "is_packed_dir", "microbatch_stack", "normalize_u8",
-           "packed_paired_training_source", "packed_training_source"]
+           "DeviceFakeImages", "DeviceFakePairedImages", "FakeImages", "FakePairedImages",
+           "ImageNetNpz", "MultiResolution", "PackedImageStore", "PackedPairedStore",
+           "ThreadedSource", "box_downsample", "find_cifar10", "is_packed_dir",
+           "microbatch_stack", "normalize_u8", "open_pyramid",
+           "packed_paired_training_source", "packed_training_source",
+           "resolve_pyramid_dir", "write_pyramid", "write_rich_pyramid"]

@@ -1,12 +1,18 @@
-"""Synthetic data (port of ``gan_lib_tensorflow_tpu/data/fake.py``):
-``DeviceFakeImages`` (``blobs`` style only, ``:154-253``) and pix2pix's
-pairs, ``FakePairedImages`` on the host and ``DeviceFakePairedImages`` on
-the device (``:256-372``).
+"""Synthetic data (port of ``gan_lib_tensorflow_tpu/data/fake.py``): the
+host ``FakeImages`` (``:110-137``) and its device twin ``DeviceFakeImages``
+(``:154-253``), each in the ``blobs`` and ``rich`` styles, and pix2pix's
+pairs, ``FakePairedImages`` on the host and ``DeviceFakePairedImages`` on the
+device (``:256-372``).
 
-``DeviceFakeImages`` renders each batch on the device from a
-``torch.Generator``: one class-pinned gaussian blob (plus a jittered copy)
-per image, low noise, clipped to [-1, 1]. The class table is the reference's, so class k looks the
-same in both packages; the random streams differ (distribution twins).
+``blobs``: one class-pinned gaussian blob (plus a jittered copy) per image,
+low noise, clipped to [-1, 1]. ``rich``: three anisotropic blobs with
+continuous random centers, sizes, weights and colors over an oriented
+background gradient (``_compose_rich``, one function for numpy and torch),
+blob 0 tinted toward the class color. The class table is the reference's,
+so class k looks the same in both packages. The host sources draw from
+``np.random.default_rng(seed)`` as the reference does, so their batches are
+the reference's bit for bit; the device sources draw from a
+``torch.Generator`` (distribution twins: the random streams differ).
 
 The device streams are counter-based, as the reference's are (``fold_in(key,
 k)``): batch k depends only on ``(seed, k)``, because the generator is
@@ -40,6 +46,104 @@ def _class_table(num_classes: int):
     return cxy, color, sigma
 
 
+def _blob_images(rng: np.random.Generator, labels: np.ndarray, size: int,
+                 num_classes: int) -> np.ndarray:
+    """The ``blobs`` style on the host, NHWC float32 in [-1, 1] (the
+    reference's, draw for draw)."""
+    n = labels.shape[0]
+    cxy, color, sigma = _class_table(num_classes)
+    lab = labels % len(sigma)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / max(size - 1, 1)
+    cx = cxy[lab, 0][:, None, None]
+    cy = cxy[lab, 1][:, None, None]
+    sg = sigma[lab][:, None, None]
+    jit = rng.uniform(-0.08, 0.08, (n, 2)).astype(np.float32)
+    d1 = (xx[None] - cx) ** 2 + (yy[None] - cy) ** 2
+    d2 = ((xx[None] - cx - jit[:, 0, None, None]) ** 2
+          + (yy[None] - cy - jit[:, 1, None, None]) ** 2)
+    inv = -1.0 / (2 * sg**2)
+    blob = 0.5 * (np.exp(d1 * inv) + np.exp(d2 * inv))
+    img = blob[..., None] * color[lab][:, None, None, :]
+    img += 0.05 * rng.standard_normal(img.shape, dtype=np.float32)
+    return np.clip(img, -1, 1, out=img)
+
+
+_RICH_BLOBS = 3
+
+
+def _compose_rich(xp, xx, yy, lab_color, centers, sigmas, weights, colors,
+                  bg_color, bg_dir, noise):
+    """The ``rich`` renderer of the host (``xp`` numpy) and device (``xp``
+    torch) sources: ``_RICH_BLOBS`` anisotropic gaussian blobs plus an
+    oriented background gradient plus ``noise``, clipped to [-1, 1]; blob
+    0's color is tinted halfway toward ``lab_color``. The parameters' leading
+    dims are batch dims; ``xx``/``yy`` are ``(H, W)`` grids in [0, 1]
+    (reference ``fake.py:61-91``)."""
+    colors = xp.concatenate(
+        [(0.5 * lab_color + 0.5 * colors[..., 0, :])[..., None, :],
+         colors[..., 1:, :]], axis=-2)
+    img = (bg_color[..., None, None, :]
+           * (bg_dir[..., 0, None, None] * (xx - 0.5)
+              + bg_dir[..., 1, None, None] * (yy - 0.5))[..., None])
+    for k in range(_RICH_BLOBS):
+        cx = centers[..., k, 0][..., None, None]
+        cy = centers[..., k, 1][..., None, None]
+        sx = sigmas[..., k, 0][..., None, None]
+        sy = sigmas[..., k, 1][..., None, None]
+        g = xp.exp(-((xx - cx) ** 2 / (2 * sx**2)
+                     + (yy - cy) ** 2 / (2 * sy**2)))
+        img = img + (weights[..., k][..., None, None, None]
+                     * g[..., None] * colors[..., k, :][..., None, None, :])
+    return xp.clip(img + noise, -1, 1)
+
+
+def _rich_images_np(rng: np.random.Generator, labels: np.ndarray, size: int,
+                    num_classes: int) -> np.ndarray:
+    """The ``rich`` style on the host (the reference's, draw for draw)."""
+    n = labels.shape[0]
+    _, class_color, _ = _class_table(num_classes)
+    lab_color = class_color[labels % len(class_color)]
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / max(size - 1, 1)
+    K = _RICH_BLOBS
+    u = lambda lo, hi, shape: rng.uniform(lo, hi, shape).astype(np.float32)
+    return _compose_rich(
+        np, xx[None], yy[None], lab_color,
+        centers=u(0.15, 0.85, (n, K, 2)), sigmas=u(0.05, 0.16, (n, K, 2)),
+        weights=u(0.3, 1.0, (n, K)), colors=u(-1, 1, (n, K, 3)),
+        bg_color=u(-0.4, 0.4, (n, 3)), bg_dir=u(-1, 1, (n, 2)),
+        noise=0.05 * rng.standard_normal((n, size, size, 3)).astype(np.float32))
+
+
+def _check_style(style: str) -> None:
+    if style not in ("blobs", "rich"):
+        raise ValueError(f"unknown synthetic style {style!r}")
+
+
+class FakeImages(DataSource):
+    """Synthetic class-conditional images on the host: infinite ``{"image":
+    [B, S, S, 3] float32 NHWC, "label": [B] int32}`` batches from
+    ``np.random.default_rng(seed)``, equal bit for bit to the reference's.
+    ``style``: ``blobs`` (maximal label signal) or ``rich`` (a distribution
+    a GAN can race on for long runs)."""
+
+    def __init__(self, batch_size: int = 64, image_size: int = 32,
+                 num_classes: int = 10, seed: int = 0, style: str = "blobs"):
+        _check_style(style)
+        self.batch_size = batch_size
+        self.image_size = image_size
+        self.num_classes = num_classes
+        self.seed = seed
+        self.style = style
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        rng = np.random.default_rng(self.seed)
+        render = _rich_images_np if self.style == "rich" else _blob_images
+        while True:
+            labels = rng.integers(0, self.num_classes, self.batch_size).astype(np.int32)
+            yield {"image": render(rng, labels, self.image_size, self.num_classes),
+                   "label": labels}
+
+
 def _seed_stream(gen: torch.Generator, seed: int, pos: int) -> None:
     """Seed ``gen`` from ``(seed, pos)``; the CPU generator keys on the low
     32 bits of its seed, so the pair is mixed into all 64."""
@@ -49,15 +153,18 @@ def _seed_stream(gen: torch.Generator, seed: int, pos: int) -> None:
 
 class DeviceFakeImages:
     """Yields ``{"image": [n_micro, B, S, S, 3] float32 NHWC, "label":
-    [n_micro, B] int32}`` on ``device``, forever."""
+    [n_micro, B] int32}`` on ``device``, forever, in the ``blobs`` or
+    ``rich`` style."""
 
     yields_stacks = True
 
     def __init__(self, batch_size: int = 64, image_size: int = 32,
                  num_classes: int = 10, seed: int = 0, n_micro: int = 1,
-                 device="cuda"):
+                 style: str = "blobs", device="cuda"):
+        _check_style(style)
         dev = resolve_device(device)
         self.batch_size, self.n_micro, self.num_classes = batch_size, n_micro, num_classes
+        self.style = style
         cxy, color, sigma = _class_table(num_classes)
         self._cxy = torch.as_tensor(cxy, device=dev)
         self._color = torch.as_tensor(color, device=dev)
@@ -83,6 +190,8 @@ class DeviceFakeImages:
         g, dev = self._gen, self.device
         lab = torch.randint(0, self.num_classes, shape, generator=g,
                             device=dev) % len(self._sigma)
+        if self.style == "rich":
+            return {"image": self._rich(lab), "label": lab.to(torch.int32)}
         cx = self._cxy[lab, 0][..., None, None]
         cy = self._cxy[lab, 1][..., None, None]
         sg = self._sigma[lab][..., None, None]
@@ -95,6 +204,19 @@ class DeviceFakeImages:
         img = blob[..., None] * self._color[lab][..., None, None, :]
         img = img + 0.05 * torch.randn(img.shape, generator=g, device=dev)
         return {"image": img.clamp(-1, 1), "label": lab.to(torch.int32)}
+
+    def _rich(self, lab: torch.Tensor) -> torch.Tensor:
+        """The ``rich`` images of classes ``lab``, the parameters drawn in
+        the reference's order (``fake.py:212-228``)."""
+        g, dev, s, K = self._gen, self.device, self._s, _RICH_BLOBS
+        shape = tuple(lab.shape)
+        u = lambda lo, hi, sh: torch.rand(shape + sh, generator=g, device=dev) * (hi - lo) + lo
+        return _compose_rich(
+            torch, self._xx, self._yy, self._color[lab],
+            centers=u(0.15, 0.85, (K, 2)), sigmas=u(0.05, 0.16, (K, 2)),
+            weights=u(0.3, 1.0, (K,)), colors=u(-1, 1, (K, 3)),
+            bg_color=u(-0.4, 0.4, (3,)), bg_dir=u(-1, 1, (2,)),
+            noise=0.05 * torch.randn(shape + (s, s, 3), generator=g, device=dev))
 
     def __iter__(self):
         while True:

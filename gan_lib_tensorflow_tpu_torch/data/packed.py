@@ -1,6 +1,8 @@
 """Prepacked uint8 image stores (port of ``gan_lib_tensorflow_tpu/data/
-packed.py:36-222``; the PGGAN pyramid is not ported): ``PackedImageStore``
-and pix2pix's ``PackedPairedStore``.
+packed.py``): ``PackedImageStore``, pix2pix's ``PackedPairedStore``, and
+PGGAN's pyramid stores (``resolve_pyramid_dir``, ``open_pyramid``, and
+``write_pyramid``, the writer of ``tools/prepack_dataset.py --resolutions``,
+with ``write_rich_pyramid``, a synthetic one at that layout).
 
 Store layout (one directory):
   meta.json   {"n", "height", "width", "channels", "num_classes", ...}
@@ -8,6 +10,9 @@ Store layout (one directory):
   images.u8   raw [N, H, W, C] uint8, C-contiguous (read through np.memmap);
               a paired store's rows are combined A|B, [N, s, 2s, 3]
   labels.npy  int32 [N] (absent for unlabeled datasets)
+
+A pyramid store is one such store per ladder resolution, in members
+``r{res:04d}/`` of one directory (``r1024/`` ... ``r0004/``).
 
 A store larger than host memory stays on disk: batches are gathered out of
 the read-only memmap's page cache, one batch at a time.
@@ -17,12 +22,14 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .base import DataSource, normalize_u8, normalize_u8_np
+from .fake import FakeImages
+from .multires import box_downsample
 
 META_NAME = "meta.json"
 
@@ -204,3 +211,72 @@ class PackedPairedStore(DataSource):
         o = (self.scale - self.image_size) // 2
         for j in range(len(self)):
             yield {**self._crops([j], [o], [o], [False]), "name": f"{j:05d}"}
+
+
+def resolve_pyramid_dir(path: str, resolution: int) -> str:
+    """The store of ``resolution``: the ``r{resolution:04d}/`` member of a
+    pyramid store, or ``path`` itself when it is a single store of that
+    size. A single store of another size raises ``ValueError``; no store at
+    all raises ``FileNotFoundError`` (reference ``packed.py:225-241``)."""
+    sub = os.path.join(path, f"r{resolution:04d}")
+    if is_packed_dir(sub):
+        return sub
+    if is_packed_dir(path):
+        with open(os.path.join(path, META_NAME)) as f:
+            height = json.load(f)["height"]
+        if height != resolution:
+            raise ValueError(f"store {path} is {height}px, wanted {resolution}px "
+                             f"and no r{resolution:04d}/ member exists")
+        return path
+    raise FileNotFoundError(f"no packed store at {path} (or {sub})")
+
+
+def open_pyramid(path: str, batch_size: int, resolution: int, seed: int = 0,
+                 wire_dtype: str = "float32") -> PackedImageStore:
+    """The pyramid member (or matching single store) at ``resolution``."""
+    return PackedImageStore(resolve_pyramid_dir(path, resolution),
+                            batch_size=batch_size, seed=seed, wire_dtype=wire_dtype)
+
+
+def write_pyramid(out_dir: str, images: np.ndarray,
+                  resolutions: Sequence[int]) -> Dict[int, str]:
+    """Write ``images`` (uint8 ``[N, R, R, C]``, R = ``resolutions[0]``) as an
+    unlabeled pyramid store, one member per resolution (descending from R).
+    Each chunk of 64 images is box-downsampled by 2 in float32 level after
+    level, and each level is rounded half to even, clipped to [0, 255] and
+    stored as uint8: the writer of ``tools/prepack_dataset.py:97-114``, equal
+    to it byte for byte. Returns ``{resolution: member directory}``."""
+    res = list(resolutions)
+    n, top = len(images), images.shape[1]
+    if res[0] != top or res != sorted(res, reverse=True):
+        raise ValueError(f"resolutions {res} must start at the images' {top} and descend")
+    dirs = {r: os.path.join(out_dir, f"r{r:04d}") for r in res}
+    stores = [write_store(dirs[r], n, r, r, images.shape[3])[0] for r in res]
+    for pos in range(0, n, 64):
+        cur, cur_res, f32 = images[pos:pos + 64], top, None
+        for r, store in zip(res, stores):
+            if r != cur_res:
+                if f32 is None:
+                    f32 = cur.astype(np.float32)
+                while cur_res > r:
+                    f32 = box_downsample(f32, 2)
+                    cur_res //= 2
+                cur = np.clip(np.rint(f32), 0, 255).astype(np.uint8)
+            store[pos:pos + len(cur)] = cur
+    for r, store in zip(res, stores):
+        finalize_store(dirs[r], store, None)
+    return dirs
+
+
+def write_rich_pyramid(out_dir: str, n_images: int = 64, resolution: int = 1024,
+                       seed: int = 0) -> Dict[int, str]:
+    """A synthetic dataset at a real pyramid's layout: ``n_images`` (a
+    multiple of 16) host ``FakeImages(style="rich")`` at ``resolution``,
+    mapped from [-1, 1] to uint8 and written by ``write_pyramid`` as members
+    ``resolution`` ... 4."""
+    src = iter(FakeImages(batch_size=16, image_size=resolution, num_classes=1,
+                          seed=seed, style="rich"))
+    u8 = np.concatenate([np.clip(np.rint((next(src)["image"] + 1.0) * 127.5), 0, 255)
+                         .astype(np.uint8) for _ in range(n_images // 16)])
+    return write_pyramid(out_dir, u8, [resolution >> i
+                                       for i in range(resolution.bit_length() - 2)])

@@ -1,7 +1,7 @@
 """PGGAN: progressive-growing G and D with equalized LR, PixelNorm,
 minibatch stddev, the fade-in and the WGAN-GP loss (port of
-``gan_lib_tensorflow_tpu/models/pggan.py``, without its space-to-depth and
-remat variants).
+``gan_lib_tensorflow_tpu/models/pggan.py``, with its ``remat_from`` and
+without its space-to-depth variant, ``s2d_from``).
 
 Each (resolution, phase) of the ladder is a network of its own. Modules carry
 the reference's flax names (``dense_4``, ``conv_4``, ``block_{res}.conv1``,
@@ -9,6 +9,13 @@ the reference's flax names (``dense_4``, ``conv_4``, ``block_{res}.conv1``,
 across stages by name (``migrate_params``) and with the JAX package
 (``convert.py``). Images are NHWC at the boundary, NCHW views with
 channels-last strides inside.
+
+``remat_from``: the G and D level blocks at resolutions >= this are
+rematerialized (``torch.utils.checkpoint``, non-reentrant, so the gradient
+penalty's double backward goes through them): only the blocks' inputs are
+stored, and the blocks' forwards run again in the backward. The parameters
+and the function are the same either way (reference ``pggan.py:182-185,
+243, 282-284``).
 
 Both fade-ins go through the hand-written kernel ``ops/fadein.py``: G blends
 its new RGB with the upsampled RGB of the level below, D its first block's
@@ -19,12 +26,14 @@ casts outside the kernel.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from ..losses import drift_penalty, gradient_penalty, wgan_d_loss, wgan_g_loss
 from ..ops import (Conv, Dense, DownsampleConv, UpsampleConv, downsample_avg,
@@ -43,6 +52,13 @@ def nf(res: int, width_mul: float = 1.0) -> int:
 
 def _lrelu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, 0.2)
+
+
+def _level(block: nn.Module, h: torch.Tensor, res: int, remat_from: int) -> torch.Tensor:
+    """``block(h)``, rematerialized when ``remat_from`` <= ``res``."""
+    if remat_from and res >= remat_from:
+        return checkpoint(block, h, use_reentrant=False)
+    return block(h)
 
 
 def _channels_last(x: torch.Tensor) -> torch.Tensor:
@@ -98,10 +114,11 @@ class PGGANGenerator(nn.Module):
     as the reference)."""
 
     def __init__(self, resolution: int = 1024, fade_in: bool = False,
-                 z_dim: int = 512, width_mul: float = 1.0,
+                 z_dim: int = 512, width_mul: float = 1.0, remat_from: int = 0,
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.resolution, self.z_dim, self.width_mul = resolution, z_dim, width_mul
+        self.remat_from = remat_from
         self.fade_in = fade_in and resolution > 4
         wm, cd = width_mul, compute_dtype
         self.dense_4 = Dense(z_dim, 16 * nf(4, wm), equalized=True, compute_dtype=cd)
@@ -127,7 +144,7 @@ class PGGANGenerator(nn.Module):
         prev, res = h, 8
         while res <= self.resolution:
             prev = h
-            h = getattr(self, f"block_{res}")(h)
+            h = _level(getattr(self, f"block_{res}"), h, res, self.remat_from)
             res *= 2
         rgb = getattr(self, f"torgb_{self.resolution}")(h).float()
         if self.fade_in:
@@ -143,10 +160,11 @@ class PGGANDiscriminator(nn.Module):
 
     def __init__(self, resolution: int = 1024, fade_in: bool = False,
                  width_mul: float = 1.0, mbstd_group_size: int = 4,
-                 fused_from: int = 0,
+                 fused_from: int = 0, remat_from: int = 0,
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.resolution, self.mbstd_group_size = resolution, mbstd_group_size
+        self.remat_from = remat_from
         self.fade_in = fade_in and resolution > 4
         self.compute_dtype = compute_dtype
         wm, cd = width_mul, compute_dtype
@@ -172,7 +190,7 @@ class PGGANDiscriminator(nn.Module):
         h = _lrelu(getattr(self, f"fromrgb_{self.resolution}")(x))
         res = self.resolution
         while res > 4:
-            h = getattr(self, f"block_{res}")(h)
+            h = _level(getattr(self, f"block_{res}"), h, res, self.remat_from)
             if res == self.resolution and self.fade_in:
                 skip = getattr(self, f"fromrgb_{res // 2}")(downsample_avg(x))
                 h = fadein_blend(_channels_last(h.float()),
@@ -201,6 +219,20 @@ def migrate_params(old: Mapping[str, torch.Tensor],
                 t.copy_(v)
                 copied += 1
     return copied
+
+
+def sampling_state(state, resolution: int):
+    """A copy of ``state`` (an ``EvalState`` of a ``resolution`` checkpoint)
+    for a G built without the fade-in: its G and EMA parameters without the
+    transition phase's second toRGB (``torgb_{resolution/2}.*``). The
+    reference's sampler, eval and export build G with ``fade_in=False``, and
+    flax ignores those parameters, so a transition checkpoint samples as G
+    at alpha 1, whatever its alpha (reference ``cli/sample.py:65-67``,
+    ``cli/evaluate.py:223``)."""
+    drop = f"torgb_{resolution // 2}."
+    keep = lambda params: (None if params is None else
+                           {k: v for k, v in params.items() if not k.startswith(drop)})
+    return dataclasses.replace(state, g=keep(state.g), ema_params=keep(state.ema_params))
 
 
 def make_pggan_spec(g_model: PGGANGenerator, d_model: PGGANDiscriminator,

@@ -1,5 +1,6 @@
 """PGGAN progressive-growing ladder (port of ``gan_lib_tensorflow_tpu/train/
-pggan_loop.py:32-178``, without its spatial sharding, remat and s2d).
+pggan_loop.py:32-178``, with its remat, without its spatial sharding and
+s2d).
 
 For each level from ``start_resolution`` to ``final_resolution``: a
 transition phase (alpha rises linearly to 1 over the phase) and then a
@@ -56,6 +57,9 @@ class LadderConfig:
     steps_per_phase: Optional[int] = None
     # the fused_scale D blocks from this resolution upward (0 = never)
     fused_from_resolution: int = 0
+    # rematerialize the G and D level blocks from this resolution upward
+    # (0 = never): activation memory for recompute, the same function
+    remat_from_resolution: int = 0
     device: str = "cuda"
 
 
@@ -85,10 +89,12 @@ def build_phase(cfg: LadderConfig, res: int, phase: str,
     fade = phase == "transition"
     g = pggan.PGGANGenerator(resolution=res, fade_in=fade, z_dim=cfg.z_dim,
                              width_mul=cfg.width_mul,
+                             remat_from=cfg.remat_from_resolution,
                              compute_dtype=cfg.compute_dtype)
     d = pggan.PGGANDiscriminator(resolution=res, fade_in=fade,
                                  width_mul=cfg.width_mul,
                                  fused_from=cfg.fused_from_resolution,
+                                 remat_from=cfg.remat_from_resolution,
                                  compute_dtype=cfg.compute_dtype)
     spec = pggan.make_pggan_spec(g, d, ema_decay=cfg.ema_decay)
     state = create_state(g, d, lr=cfg.lr, beta1=cfg.beta1, beta2=cfg.beta2,

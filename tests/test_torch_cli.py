@@ -91,11 +91,13 @@ def test_import_leaves_jax_out():
         "import gan_lib_tensorflow_tpu_torch.data.device_cache\n"
         "import gan_lib_tensorflow_tpu_torch.data.fake\n"
         "import gan_lib_tensorflow_tpu_torch.data.imagenet\n"
+        "import gan_lib_tensorflow_tpu_torch.data.multires\n"
         "import gan_lib_tensorflow_tpu_torch.data.packed\n"
         "import gan_lib_tensorflow_tpu_torch.data.pipeline\n"
         "import gan_lib_tensorflow_tpu_torch.eval.features\n"
         "import gan_lib_tensorflow_tpu_torch.eval.inception_v3\n"
         "import gan_lib_tensorflow_tpu_torch.eval.metrics\n"
+        "import gan_lib_tensorflow_tpu_torch.eval.perceptual\n"
         "import gan_lib_tensorflow_tpu_torch.models.acgan\n"
         "import gan_lib_tensorflow_tpu_torch.models.pix2pix\n"
         "import gan_lib_tensorflow_tpu_torch.models.sngan\n"

@@ -123,16 +123,11 @@ def test_real_moments_n_real_below_batch_raises():
 
 @pytest.mark.parametrize("model", ["pggan", "acgan", "imagenet"])
 def test_evaluate_refuses_families_not_ported(model, tmp_path):
-    """A family whose eval is not ported (PGGAN's) is refused, naming its
-    ROADMAP item; the SNGAN-projection (``imagenet``) and ACGAN families are
-    ported and are no longer refused: they get as far as looking for their
-    checkpoint."""
+    """Every family's eval is ported now (the SNGAN-projection ``imagenet``,
+    ACGAN and, since the PGGAN eval came, PGGAN): none is refused, each gets
+    as far as looking for its checkpoint."""
     argv = ["--model", model, "--ckpt-dir", str(tmp_path), "--device", "cpu"]
-    if model in ("imagenet", "acgan"):
-        with pytest.raises(FileNotFoundError, match="no checkpoint"):
-            evaluate.main(argv)
-        return
-    with pytest.raises(SystemExit, match="not ported yet; ROADMAP.md Queue 1"):
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
         evaluate.main(argv)
 
 
@@ -151,8 +146,9 @@ def test_png_matches_the_jax_packages_grid(shape, tmp_path):
 
 
 def test_sample_cli_pggan_transition_checkpoint(tmp_path):
-    """A PGGAN phase checkpoint (here the 8x8 transition's) samples through
-    cli.sample, fade-in generator and all."""
+    """A PGGAN phase checkpoint (here the 8x8 transition's, its second toRGB
+    included) samples through cli.sample, with G built without the fade-in
+    as the reference builds it."""
     from gan_lib_tensorflow_tpu_torch.train.pggan_loop import LadderConfig, train_pggan_ladder
     from gan_lib_tensorflow_tpu_torch.data import DeviceFakeImages
 

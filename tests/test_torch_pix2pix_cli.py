@@ -3,7 +3,7 @@
 store (held on the CPU device, and streamed), a faulted run resumed bit-equal
 to an uninterrupted one, the test pass with its gallery, the export bundle
 reloaded with ``torch.export.load`` against the eager G, and ``cli.sample
---export-dir`` for SNGAN and ACGAN (PGGAN refused with rc 2).
+--export-dir`` for SNGAN, ACGAN and PGGAN.
 
 The reloaded bundles run the same float32 operations on the same inputs as
 the eager modules: they are held equal at rtol 1e-6 / atol 1e-6 (a traced
@@ -179,11 +179,39 @@ def test_sample_export_dir(model, tmp_path):
     assert raw["step"] == 0 and ("ema_params" in raw) == (model == "sngan")
 
 
-def test_sample_export_refuses_pggan(tmp_path, capsys):
-    with pytest.raises(SystemExit) as e:
-        sample.main(["--model", "pggan", "--ckpt-dir", str(tmp_path), "--device", "cpu",
-                     "--export-dir", str(tmp_path / "export")])
-    assert e.value.code == 2 and "PGGAN export is not ported" in capsys.readouterr().err
+def test_sample_export_refuses_pggan(tmp_path):
+    """The PGGAN export, once refused with rc 2, is no longer refused: a
+    mid-transition checkpoint (alpha 0.5, an EMA apart from G) exports G
+    without the fade-in, as the reference's export does, and the reloaded
+    bundle equals the eager sampler ``cli.sample`` returns; the payload keeps
+    the checkpoint's parameters, second toRGB included, and its alpha."""
+    from gan_lib_tensorflow_tpu_torch.models import pggan
+    from gan_lib_tensorflow_tpu_torch.train.pggan_loop import LadderConfig, build_phase
+    cfg = LadderConfig(final_resolution=8, batch_by_res={4: 4, 8: 4}, width_mul=1 / 64,
+                       z_dim=8, device="cpu")
+    st = build_phase(cfg, 8, "transition").state
+    st.alpha, st.step = 0.5, 3
+    with torch.no_grad():
+        for t in st.ema_params.values():
+            t.mul_(0.5)
+    ckpt = CheckpointManager(str(tmp_path / "ckpt"))
+    ckpt.save(3, st, wait=True)
+    ckpt.close()
+    out = tmp_path / "export"
+    eager = sample.main(["--model", "pggan", "--ckpt-dir", str(tmp_path / "ckpt"),
+                         "--resolution", "8", "--width-mul", str(1 / 64), "--n", "6",
+                         "--out", str(tmp_path / "grid.png"), "--device", "cpu",
+                         "--export-dir", str(out)])
+    z = torch.randn(6, 8, generator=torch.Generator().manual_seed(0))
+    served = torch.export.load(str(out / BUNDLE_FILENAME)).module()(z)
+    assert served.shape == (6, 8, 8, 3)
+    torch.testing.assert_close(served, eager, rtol=1e-6, atol=1e-6)
+    g = pggan.PGGANGenerator(resolution=8, z_dim=8, width_mul=1 / 64)
+    g.load_state_dict({k: v for k, v in st.ema_params.items() if not k.startswith("torgb_4.")})
+    torch.testing.assert_close(eager, g(z).detach(), rtol=0, atol=0)
+    raw = CheckpointManager(str(out)).restore_latest_raw()
+    assert raw["step"] == 3 and raw["alpha"] == 0.5
+    assert "torgb_4.weight" in raw["g"] and "torgb_4.weight" in raw["ema_params"]
 
 
 def test_train_pix2pix_defaults_to_cuda_and_raises_without_it():
