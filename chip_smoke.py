@@ -123,10 +123,44 @@ final line):
      bundle bit-equal to the eager sampler; (g) one 1024^2 transition step
      with ``--remat-from 512`` and one without, from the same state and
      batch: equal losses, the peak memory of each
+ 15. multi-rank (in a temporary directory): the training CLIs under
+     ``python -m torch.distributed.run --standalone``, each rank running
+     ``chip_smoke.py --rank-run`` (the CLI's ``main`` and a record of its
+     launches, bytes and shard hashes). (a) ``train_sngan`` on 2 gloo ranks
+     sharing the card (batch 64, 32 per rank, bf16, 8 steps) against the
+     one-rank run of the same command, both with plain SGD in place of Adam
+     (an update linear in the gradient): every logged metric within 5e-2,
+     the final G and D parameters apart by under 1% of the distance the
+     updates moved them, the EMA by under 5% (relative L2; one rank's
+     gradients in place of the average fail each), BN running
+     stats and SN u within
+     5e-2 (relative L2), 6 power-iteration launches per step on each rank,
+     ms/step and images/s per card of both; (b) ``train_sngan_imagenet
+     --tp-shards 2`` at full width ('data' 1 x 'model' 2, batch 16, 3
+     steps): losses within 1e-6 of one rank, the full-size weights the
+     network computes with (gathered over 'model') within 1e-6 of one
+     rank's and equal on both ranks, each rank holding under 60% of
+     the one-rank parameters, Adam slots and EMA, 6 launches per step per
+     rank over 19 weights; (e) its checkpoint restored by one rank, whose
+     slices equal every rank's shards bit for bit; (c) ``train_pggan`` to
+     1024^2 under DP 2 in fp32 (1 step per phase, 2 images per rank at
+     1024^2): 6 fade-in launches per transition step on each rank, the
+     1024^2 transition step's metrics within 5e-3 relative of one rank; (d)
+     ``train_sngan`` on a one-rank NCCL group, as (a) with SGD: its metrics
+     within 1e-6 of (a)'s run without a mesh (a 'data' axis of one rank
+     makes no collective in the step), and the port's collectives (an
+     autograd all-reduce and its backward, an all-gather) on CUDA tensors
+     through NCCL; (f) ``--trace-steps 2``: a
+     ``torch.profiler`` trace of steps 11-13 holding 18 spans of
+     ``power_iteration_kernel``, and ``--debug-nans`` raising
+     ``FloatingPointError`` on a NaN injected into D's SN weight (named by
+     the kernel's wrapper) and into G's Dense weight (named by the
+     operator); then the fade-in at the shapes one rank of (c) gives it
 
 The power iteration's ``launches`` in the kernels' record are those of
-phase 5's SNGAN run and phase 12's conditional SNGAN run; the fade-in's are
-those of phase 6's ladder and phase 14's ladder (b).
+phase 5's SNGAN run, phase 12's conditional SNGAN run and every run of
+phase 15 (each rank's and the one-rank runs'); the fade-in's are those of
+phase 6's ladder, phase 14's ladder (b) and phase 15's ladders.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -187,6 +221,13 @@ PIX_WARM, PIX_TIMED = 4, 24
 # pairs) with 256 images per side for SWD
 PGE_RES, PGE_IMAGES, PGE_WIDTH = 1024, 64, 1.0
 PGE_EVAL_SAMPLES, PGE_SWD_SAMPLES = 640, 256
+# multi-rank (phase 15): two ranks share the one card through gloo
+MR_RANKS = 2
+MR_SNGAN_STEPS, MR_LOG_EVERY = 8, 4        # (a): sec_per_step of steps 5-8
+MR_IMAGENET_BATCH, MR_IMAGENET_STEPS = 16, 3
+MR_TRACE_STEPS = 2                           # (f): a window of 3 steps, 11-13
+# the fade-in's two blends of the 1024^2 transition step at 2 images per rank
+FADEIN_HALF_SHAPES = [(2, 3, 1024, 1024), (2, 32, 512, 512)]
 
 
 def nvidia_smi(fields: str) -> str:
@@ -1515,6 +1556,479 @@ def pggan_to_the_end(card: str, tmp: str) -> int:
     return launches
 
 
+def state_bytes(st) -> dict:
+    """Bytes the rank holds: the parameters the optimizers update (a rank's
+    shards of the wide ones under 'model' sharding), both Adam slots, the
+    EMA; and the full-size weights the networks compute with."""
+    nbytes = lambda ts: sum(t.numel() * t.element_size()
+                            for t in (ts.values() if isinstance(ts, dict) else ts))
+    out = {"params": 0, "slots": 0, "weights_full": 0}
+    for net in ("g", "d"):
+        sh, module = getattr(st, f"{net}_shards"), getattr(st, net)
+        held = sh.opt_params() if sh is not None else list(module.parameters())
+        opt = getattr(st, f"{net}_opt")
+        out["params"] += nbytes(held)
+        out["slots"] += sum(nbytes([opt.state[p]["exp_avg"], opt.state[p]["exp_avg_sq"]])
+                            for p in held if "exp_avg" in opt.state.get(p, {}))
+        out["weights_full"] += nbytes(list(module.parameters()))
+    out["ema"] = nbytes(st.ema_params) if st.ema_params is not None else 0
+    return out
+
+
+def _sha(t) -> str:
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+def shard_hashes(st) -> dict:
+    """sha256 of every 'model' shard the rank holds: value, both Adam slots,
+    and G's EMA."""
+    out = {}
+    for net in ("g", "d"):
+        sh, opt = getattr(st, f"{net}_shards"), getattr(st, f"{net}_opt")
+        for n, m in (sh.masters.items() if sh is not None else []):
+            out[f"{net}/{n}"] = _sha(m)
+            out[f"{net}_mu/{n}"] = _sha(opt.state[m]["exp_avg"])
+            out[f"{net}_nu/{n}"] = _sha(opt.state[m]["exp_avg_sq"])
+            if net == "g" and st.ema_params is not None:
+                out[f"ema/{n}"] = _sha(st.ema_params[n])
+    return out
+
+
+def sgd_for_adam():
+    """Make every Adam the port builds plain SGD at the same lr (an update
+    linear in the gradient); returns the undo."""
+    import torch
+    adam = torch.optim.Adam
+    torch.optim.Adam = lambda params, lr, betas=None, eps=None: torch.optim.SGD(params, lr=lr)
+
+    def undo():
+        torch.optim.Adam = adam
+    return undo
+
+
+def _sha_all(module) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for t in module.parameters():
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def rank_run(out: str, module: str, argv: list, sgd: bool = False) -> None:
+    """One rank of a ``torch.distributed.run`` launch (``chip_smoke.py
+    --rank-run [--sgd] OUT MODULE ARGV...``): the CLI's ``main(argv)`` (with
+    SGD for Adam under ``sgd``), then this rank's kernel launches, seconds,
+    peak memory, state bytes and shard hashes to ``OUT.rank<r>.json``. Under
+    'model' sharding also the sha256 of the full-size weights the networks
+    compute with, and rank 0 saves them to ``OUT.weights.pt``. On an NCCL
+    group it also runs the port's collectives on CUDA tensors and checks
+    their results."""
+    import importlib
+    import torch
+    import torch.distributed as dist
+    import torch.distributed.nn.functional as dist_fn
+    from gan_lib_tensorflow_tpu_torch.ops import fadein as fd
+    from gan_lib_tensorflow_tpu_torch.ops import power_iteration as pi
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cli = importlib.import_module(f"gan_lib_tensorflow_tpu_torch.cli.{module}")
+    # host intervals of each train step and of each collective in it (a
+    # gloo collective's includes its wait for the card to reach it)
+    steps, calls = [], []
+
+    def timed(fn, sink):
+        def wrapper(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                sink.append((t, time.perf_counter()))
+        return wrapper
+
+    for name in ("all_reduce", "all_gather"):
+        setattr(dist, name, timed(getattr(dist, name), calls))
+    if hasattr(cli, "make_train_step"):
+        make = cli.make_train_step
+        cli.make_train_step = lambda spec: timed(make(spec), steps)
+    if sgd:
+        sgd_for_adam()
+    pi.launches = fd.launches = 0
+    t0 = time.perf_counter()
+    st = cli.main(argv)
+    torch.cuda.synchronize()
+    mesh = st.mesh
+    rec = {"rank": mesh.rank if mesh else 0, "backend": mesh.backend if mesh else None,
+           "mesh": dict(zip(mesh.axis_names, mesh.shape)) if mesh else None,
+           "n_cards": mesh.n_cards if mesh else 1, "device": str(mesh.device if mesh else ""),
+           "pi": pi.launches, "fd": fd.launches, "seconds": time.perf_counter() - t0,
+           "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+           "bytes": state_bytes(st), "hashes": shard_hashes(st), "step": st.step,
+           # per step: its host seconds, and the seconds and number of the
+           # collectives inside it
+           "per_step": [(e - s, sum(ce - cs for cs, ce in calls if s <= cs < e),
+                         sum(1 for cs, _ in calls if s <= cs < e)) for s, e in steps]}
+    if st.g_shards is not None or st.d_shards is not None:
+        rec["full_hashes"] = {"g": _sha_all(st.g), "d": _sha_all(st.d)}
+        if rec["rank"] == 0:
+            torch.save({net: {n: p.detach().cpu() for n, p in getattr(st, net).named_parameters()}
+                        for net in ("g", "d")}, f"{out}.weights.pt")
+    if rec["backend"] == "nccl":
+        group, dev = mesh.group("data"), mesh.device
+        x = torch.arange(1.0, 5.0, device=dev, requires_grad=True)
+        y = dist_fn.all_reduce(x * x, group=group)
+        (gx,) = torch.autograd.grad(y.sum(), x)
+        parts = [torch.empty(4, device=dev) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.detach(), group=group)
+        n = dist.get_world_size(group)
+        rec["nccl_probe"] = bool(torch.equal(y, n * x.detach() ** 2)
+                                 and torch.equal(gx, 2 * n * x.detach())
+                                 and all(torch.equal(q, x.detach()) for q in parts))
+    with open(f"{out}.rank{rec['rank']}.json", "w") as f:
+        json.dump(rec, f)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def torchrun(n: int, out: str, module: str, argv: list, timeout: float = 600,
+             sgd: bool = False) -> list:
+    """``python -m torch.distributed.run --standalone --nproc_per_node n``
+    of ``module``'s ``main(argv)`` through ``rank_run`` (SGD for Adam under
+    ``sgd``); every process it starts is stopped on the way out. Returns
+    the ranks' records."""
+    import signal
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(n), os.path.abspath(__file__), "--rank-run",
+           *(["--sgd"] if sgd else []), out, module, *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            process_group=0)
+    try:
+        text, _ = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    for line in text.splitlines():
+        if line.startswith(("[mesh]", "[profiler]")):
+            print("   ", line)
+    if proc.returncode != 0:
+        print(text[-6000:])
+    check(proc.returncode == 0, f"{module} on {n} ranks exited {proc.returncode}")
+    recs = []
+    for r in range(n):
+        with open(f"{out}.rank{r}.json") as f:
+            recs.append(json.load(f))
+    print(f"    {module} on {n} rank(s): {time.perf_counter() - t0:.1f} s wall with the "
+          "launcher's start", flush=True)
+    return recs
+
+
+def read_log(out_dir: str) -> list:
+    with open(os.path.join(out_dir, "log.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def losses_close(got: list, want: list, rtol: float, atol: float, what: str) -> float:
+    """Every logged metric of two runs within rtol/atol (not ``sec_per_step``);
+    returns the largest absolute difference."""
+    check(len(got) == len(want), f"{what}: {len(got)} log lines against {len(want)}")
+    worst = 0.0
+    for a, b in zip(got, want):
+        for k, v in b.items():
+            if k in ("step", "sec_per_step"):
+                continue
+            diff = abs(a[k] - v)
+            worst = max(worst, diff)
+            check(diff <= atol + rtol * abs(v),
+                  f"{what}: step {b['step']} {k} {a[k]} against {v}")
+    return worst
+
+
+def multi_rank(card: str, tmp: str, parts: str = "abcdf") -> tuple:
+    """Phase 15: the training CLIs under ``torch.distributed.run`` on this
+    card; ``parts`` picks the runs ((d) compares with (a), (e) is in (b)).
+    Returns the power-iteration and fade-in launches of its runs (every
+    rank's) and the fade-in's times at 2 images per rank."""
+    import torch
+    from gan_lib_tensorflow_tpu_torch.cli import common, train_sngan, train_sngan_imagenet
+    from gan_lib_tensorflow_tpu_torch.cli import train_pggan
+    from gan_lib_tensorflow_tpu_torch.ops import fadein as fd
+    from gan_lib_tensorflow_tpu_torch.ops import power_iteration as pi
+    from gan_lib_tensorflow_tpu_torch.train import CheckpointManager, make_train_step
+    from gan_lib_tensorflow_tpu_torch.utils import debug_nans
+    pi_total = fd_total = 0
+    torch.cuda.empty_cache()
+
+    def one_rank(main_fn, argv):
+        pi.launches = fd.launches = 0
+        t0 = time.perf_counter()
+        st = main_fn(argv)
+        torch.cuda.synchronize()
+        return st, pi.launches, fd.launches, time.perf_counter() - t0
+
+    # (a) SNGAN CIFAR-10, batch 64 (32 per rank), bf16, gloo
+    sn_base = ["--data", "fake", "--batch-size", "64", "--compute-dtype", "bf16"]
+    sn = sn_base + ["--steps", str(MR_SNGAN_STEPS), "--log-every", "1"]
+    if "a" in parts:
+        # with SGD in place of Adam, an update linear in the gradient, so the
+        # runs' weights part in proportion to their gradients' difference
+        recs = torchrun(MR_RANKS, os.path.join(tmp, "a"), "train_sngan",
+                        sn + ["--out-dir", os.path.join(tmp, "a2")], sgd=True)
+        undo = sgd_for_adam()
+        try:
+            one, one_pi, _, _ = one_rank(train_sngan.main,
+                                         sn + ["--out-dir", os.path.join(tmp, "a1")])
+        finally:
+            undo()
+        for rec in recs:
+            check(rec["backend"] == "gloo" and rec["n_cards"] == 1 and rec["mesh"] == {"data": 2},
+                  f"(a) rank {rec['rank']}: {rec['backend']} over {rec['n_cards']} card(s)")
+            check(rec["pi"] == 6 * MR_SNGAN_STEPS,
+                  f"(a) rank {rec['rank']}: {rec['pi']} power-iteration launches, want 6 per step")
+        check(one_pi == 6 * MR_SNGAN_STEPS, f"(a) one rank: {one_pi} launches")
+        pi_total += sum(r["pi"] for r in recs) + one_pi
+        logs2, logs1 = read_log(os.path.join(tmp, "a2")), read_log(os.path.join(tmp, "a1"))
+        loss_err = losses_close(logs2, logs1, 5e-2, 5e-2, "(a) SNGAN losses, 2 ranks vs 1")
+        c2 = CheckpointManager(os.path.join(tmp, "a2", "ckpt")).restore_latest_raw()
+        c1 = CheckpointManager(os.path.join(tmp, "a1", "ckpt")).restore_latest_raw()
+        init = train_sngan.build(train_sngan.parse_args(sn + ["--device", "cuda"]))[3]
+        w0 = {"g": init.g.state_dict(), "d": init.d.state_dict()}
+        buffer = lambda k: k.endswith((".u", ".running_mean", ".running_var"))
+        # the runs' distance over the distance the updates moved the weights:
+        # one rank's gradients of its 32 images in place of the average
+        # fail every bound (a mutation check on the CPU at this batch in
+        # bf16); the EMA, at decay 0.9999, moves a few float32 ulps a step,
+        # so rounding is much of its distance
+        bound = {"g": 1e-2, "d": 1e-2, "ema_params": 5e-2}
+        w0["ema_params"] = w0["g"]
+        rel, moved, buf_rel = {}, {}, 0.0
+        for key in ("g", "d", "ema_params"):
+            names = [k for k in c1[key] if not buffer(k)]
+            apart = sum(float((c2[key][k] - c1[key][k]).double().norm() ** 2) for k in names)
+            moved[key] = sum(float((c1[key][k] - w0[key][k].cpu()).double().norm() ** 2)
+                             for k in names)
+            check(moved[key] > 0, f"(a) the updates did not move {key}")
+            rel[key] = math.sqrt(apart / moved[key])
+            check(rel[key] <= bound[key], f"(a) final {key}: {rel[key]:.3e} of the distance "
+                                          f"the updates moved it apart, bound {bound[key]}")
+        for key in ("g", "d"):
+            for k, v in c1[key].items():
+                if buffer(k):
+                    buf_rel = max(buf_rel, float((c2[key][k] - v).norm() / v.norm()))
+        # BN running statistics and SN u vectors follow bf16 activations
+        check(buf_rel <= 5e-2, f"(a) BN running stats / SN u {buf_rel:.3e} apart (relative L2)")
+        del init
+        ms2 = 1e3 * statistics.mean(r["sec_per_step"] for r in logs2[MR_LOG_EVERY:])
+        ms1 = 1e3 * statistics.mean(r["sec_per_step"] for r in logs1[MR_LOG_EVERY:])
+        window = recs[0]["per_step"][MR_LOG_EVERY:]
+        step_ms = 1e3 * statistics.mean(w[0] for w in window)
+        coll_ms = 1e3 * statistics.mean(w[1] for w in window)
+        coll_calls = statistics.mean(w[2] for w in window)
+        print(f"(a) train_sngan with SGD, 2 ranks (gloo, one card) vs 1: {MR_SNGAN_STEPS} steps, "
+              f"every logged metric within 5e-2 (largest difference {loss_err:.3e}); final G, D, "
+              f"EMA parameters apart by {rel['g']:.3e}, {rel['d']:.3e}, {rel['ema_params']:.3e} "
+              f"of the distance the updates moved them (relative L2, bounds 1e-2, 1e-2, 5e-2; "
+              f"moved {math.sqrt(moved['g']):.3e}, {math.sqrt(moved['d']):.3e}, "
+              f"{math.sqrt(moved['ema_params']):.3e}), BN running stats and SN u "
+              f"{buf_rel:.3e} (relative L2, bound 5e-2); power-iteration launches per rank "
+              f"{[r['pi'] for r in recs]} (6 per step); ms/step (steps {MR_LOG_EVERY + 1}-"
+              f"{MR_SNGAN_STEPS}) 2 ranks {ms2:.2f}, 1 rank {ms1:.2f}; images/s per card "
+              f"{5 * 64 / ms2 * 1e3:.1f} vs {5 * 64 / ms1 * 1e3:.1f}; rank 0's steps "
+              f"{MR_LOG_EVERY + 1}-{MR_SNGAN_STEPS}: {step_ms:.2f} ms in the step call, "
+              f"{coll_ms:.2f} of them in {coll_calls:.0f} all-reduces and all-gathers "
+              f"(gloo's wait for the card included), {coll_ms / step_ms:.3f} of the step; "
+              f"peak per rank "
+              f"{max(r['peak_mib'] for r in recs):.0f} MiB  [{card}]", flush=True)
+        del one
+
+    if "b" in parts:
+        # (b) SNGAN-projection ImageNet-128, full width, 'data' 1 x 'model' 2
+        im = ["--data", "fake", "--batch-size", str(MR_IMAGENET_BATCH), "--compute-dtype", "bf16",
+              "--steps", str(MR_IMAGENET_STEPS), "--log-every", "1"]
+        recs = torchrun(MR_RANKS, os.path.join(tmp, "b"), "train_sngan_imagenet",
+                        im + ["--tp-shards", "2", "--out-dir", os.path.join(tmp, "b2")])
+        one, one_pi, _, _ = one_rank(train_sngan_imagenet.main,
+                                     im + ["--out-dir", os.path.join(tmp, "b1")])
+        full = state_bytes(one)
+        for rec in recs:
+            check(rec["mesh"] == {"data": 1, "model": 2}, f"(b) mesh {rec['mesh']}")
+            check(rec["pi"] == 6 * MR_IMAGENET_STEPS, f"(b) rank {rec['rank']}: {rec['pi']} launches")
+            for k in ("params", "slots", "ema"):
+                check(rec["bytes"][k] < 0.6 * full[k],
+                      f"(b) rank {rec['rank']} holds {rec['bytes'][k]} B of {k}, one rank {full[k]}")
+        check(one_pi == 6 * MR_IMAGENET_STEPS, f"(b) one rank: {one_pi} launches")
+        pi_total += sum(r["pi"] for r in recs) + one_pi
+        logs2, logs1 = read_log(os.path.join(tmp, "b2")), read_log(os.path.join(tmp, "b1"))
+        # one 'data' shard: both ranks and the one-rank run compute the same
+        # forward from the same weights
+        tp_err = losses_close(logs2, logs1, 1e-6, 1e-6, "(b) ImageNet-128 losses, TP 2 vs 1")
+        check(recs[0]["full_hashes"] == recs[1]["full_hashes"],
+              "(b) the ranks' full-size working weights differ")
+        saved = torch.load(os.path.join(tmp, "b.weights.pt"), weights_only=True)
+        w_err = 0.0
+        for net in ("g", "d"):
+            mine = dict(getattr(one, net).named_parameters())
+            check(set(saved[net]) == set(mine), f"(b) {net} parameter names differ")
+            for n, t in saved[net].items():
+                w_err = max(w_err, float((t.to(mine[n].device) - mine[n].detach()).abs().max()))
+        check(w_err <= 1e-6, f"(b) full-size weights {w_err:.3e} from one rank's")
+        del saved
+        mb = lambda b: f"{b / 1e6:.1f} MB"
+        print(f"(b) train_sngan_imagenet --tp-shards 2 (full width, batch {MR_IMAGENET_BATCH}, "
+              f"{MR_IMAGENET_STEPS} steps): losses within 1e-6 of one rank (largest difference "
+              f"{tp_err:.3e}); full-size working weights gathered over 'model' equal on both "
+              f"ranks and {w_err:.3e} from one rank's (bound 1e-6); per rank: params {mb(recs[0]['bytes']['params'])}, Adam slots "
+              f"{mb(recs[0]['bytes']['slots'])}, EMA {mb(recs[0]['bytes']['ema'])}, against one "
+              f"rank's {mb(full['params'])}, {mb(full['slots'])}, {mb(full['ema'])}; full-size "
+              f"working weights {mb(recs[0]['bytes']['weights_full'])} per rank; launches per "
+              f"rank {[r['pi'] for r in recs]} over 19 weights; ms/step 2 ranks "
+              f"{1e3 * logs2[-1]['sec_per_step']:.1f}, 1 rank {1e3 * logs1[-1]['sec_per_step']:.1f}; "
+              f"rank 0's steps 2-{MR_IMAGENET_STEPS}: "
+              f"{1e3 * statistics.mean(w[0] for w in recs[0]['per_step'][1:]):.1f} ms in the "
+              f"step call, {1e3 * statistics.mean(w[1] for w in recs[0]['per_step'][1:]):.1f} "
+              f"of them in {statistics.mean(w[2] for w in recs[0]['per_step'][1:]):.0f} "
+              f"collectives; "
+              f"peak per rank {max(r['peak_mib'] for r in recs):.0f} MiB  [{card}]", flush=True)
+
+        # (e) the 2-rank checkpoint restored by one rank: its slices are the
+        # ranks' shards, bit for bit
+        args = train_sngan_imagenet.parse_args(im + ["--device", "cuda"])
+        _, _, _, restored = train_sngan_imagenet.build(args)
+        check(CheckpointManager(os.path.join(tmp, "b2", "ckpt")).restore_latest(restored)
+              is not None and restored.step == MR_IMAGENET_STEPS, "(e) no checkpoint restored")
+        checked = 0
+        for rec in recs:
+            j = rec["rank"]
+            for key, h in rec["hashes"].items():
+                kind, name = key.split("/", 1)
+                net = kind[0] if kind != "ema" else "g"
+                p = dict(getattr(restored, net).named_parameters())[name]
+                if kind == "ema":
+                    t = restored.ema_params[name]
+                elif kind.endswith("_mu") or kind.endswith("_nu"):
+                    t = getattr(restored, f"{net}_opt").state[p][
+                        "exp_avg" if kind.endswith("_mu") else "exp_avg_sq"]
+                else:
+                    t = p
+                k = t.shape[0] // 2
+                check(_sha(t[j * k:(j + 1) * k]) == h, f"(e) rank {j}'s {key} differs")
+                checked += 1
+        print(f"(e) the TP-2 checkpoint restored by one rank: {checked} shards (values, both "
+              "Adam slots, EMA) equal the ranks' own, bit for bit", flush=True)
+        del one, restored
+
+    if "c" in parts:
+        # (c) PGGAN to the 1024^2 transition, DP 2 (batch 4 -> 2 per rank)
+        pg = ["--data", "device-fake", "--final-resolution", "1024", "--steps-per-phase", "1",
+              "--log-every", "1", "--compute-dtype", "fp32", "--sample-every", "1000",
+              "--ckpt-every", "1000"]
+        recs = torchrun(MR_RANKS, os.path.join(tmp, "c"), "train_pggan",
+                        pg + ["--out-dir", os.path.join(tmp, "c2")])
+        _, _, one_fd, _ = one_rank(train_pggan.main, pg + ["--out-dir", os.path.join(tmp, "c1")])
+        # 6 per transition step (8 transitions of 1 step), and one per transition
+        # phase's sample grid, which rank 0 alone draws
+        for rec in recs:
+            want = 48 + (8 if rec["rank"] == 0 else 0)
+            check(rec["fd"] == want, f"(c) rank {rec['rank']}: {rec['fd']} fade-in launches, "
+                                     f"want {want}")
+        check(one_fd == 56, f"(c) one rank: {one_fd} fade-in launches, want 56")
+        fd_total += sum(r["fd"] for r in recs) + one_fd
+        phase_dir = "1024x1024_transition"
+        l2, l1 = (read_log(os.path.join(tmp, c, phase_dir)) for c in ("c2", "c1"))
+        # 16 one-step phases come before it, each Adam update amplifying the
+        # summation-order noise of the sums across ranks
+        pg_err = losses_close(l2, l1, 5e-3, 1e-3, "(c) PGGAN 1024^2 transition losses")
+        print(f"(c) train_pggan to 1024^2, DP 2 (2 images per rank at 1024^2), fp32: fade-in "
+              f"launches per rank {[r['fd'] for r in recs]} (6 per transition step, and rank 0's "
+              f"8 grids); the 1024^2 "
+              f"transition step's metrics within 5e-3 relative of one rank (largest difference "
+              f"{pg_err:.3e}: {l2[-1]} vs {l1[-1]}); ladder {max(r['seconds'] for r in recs):.1f} s "
+              f"on 2 ranks; peak per rank {max(r['peak_mib'] for r in recs):.0f} MiB  [{card}]",
+              flush=True)
+
+    if "d" in parts:
+        # (d) one rank on a one-rank NCCL group, through the same code path
+        # (SGD, as (a)'s run without a mesh that it is compared with)
+        recs = torchrun(1, os.path.join(tmp, "d"), "train_sngan",
+                        sn + ["--out-dir", os.path.join(tmp, "d1")], sgd=True)
+        check(recs[0]["backend"] == "nccl" and recs[0]["pi"] == 6 * MR_SNGAN_STEPS,
+              f"(d) backend {recs[0]['backend']}, {recs[0]['pi']} launches")
+        check(recs[0]["nccl_probe"], "(d) NCCL collectives on CUDA tensors gave wrong results")
+        pi_total += recs[0]["pi"]
+        nccl_err = losses_close(read_log(os.path.join(tmp, "d1")), read_log(os.path.join(tmp, "a1")),
+                                1e-6, 1e-6, "(d) NCCL one-rank losses vs no mesh")
+        print(f"(d) train_sngan on a one-rank NCCL group: backend {recs[0]['backend']}, "
+              f"{recs[0]['pi']} launches, metrics within 1e-6 of the run without a mesh "
+              f"(largest difference {nccl_err:.3e}); an autograd all-reduce, its backward and "
+              f"an all-gather on CUDA tensors through NCCL exact", flush=True)
+
+    if "f" in parts:
+        # (f) --trace-steps 2: a window of 3 steps naming the kernel
+        pi.launches = 0
+        train_sngan.main(sn_base + ["--steps", "14", "--trace-steps", str(MR_TRACE_STEPS),
+                                    "--log-every", "7", "--out-dir", os.path.join(tmp, "f")])
+        pi_total += pi.launches
+        with open(os.path.join(tmp, "f", "trace", "trace_rank0.json")) as f:
+            events = json.load(f)["traceEvents"]
+        steps = sorted(int(e["name"].split()[1]) for e in events
+                       if str(e.get("name", "")).startswith("train_step ")
+                       and e.get("cat") == "user_annotation")
+        kernels = [e for e in events if "power_iteration_kernel" in str(e.get("name", ""))
+                   and e.get("cat") == "kernel"]
+        check(steps == list(range(11, 12 + MR_TRACE_STEPS)),
+              f"(f) traced steps {steps}, want {MR_TRACE_STEPS + 1} from step 11")
+        check(len(kernels) == 6 * len(steps), f"(f) {len(kernels)} power-iteration kernels "
+                                              f"in the trace, want {6 * len(steps)}")
+        print(f"(f) --trace-steps {MR_TRACE_STEPS}: the trace holds steps {steps} "
+              f"({len(steps)} = n + 1, as the reference's window) and {len(kernels)} device "
+              f"spans of power_iteration_kernel (6 per step)", flush=True)
+
+        def nan_step(module_path: str, what: str) -> str:
+            args = train_sngan.parse_args(["--data", "fake", "--device", "cuda", "--batch-size",
+                                           "8", "--n-critic", "1", "--debug-nans"])
+            _, _, spec, st = train_sngan.build(args)
+            src = iter(common.image_source(args, 8, 32, 10, n_micro=1))
+            net, _, name = module_path.partition(".")
+            with torch.no_grad():
+                getattr(st, net).get_parameter(name).view(-1)[0] = float("nan")
+            common.configure(args)
+            try:
+                make_train_step(spec)(st, next(src))
+            except FloatingPointError as e:
+                return str(e)
+            finally:
+                debug_nans.disable()
+            check(False, f"(f) --debug-nans: a NaN in {what} raised nothing")
+
+        msgs = [nan_step("d.block1.conv1.weight", "an SN weight of D"),
+                nan_step("g.dense.weight", "G's first Dense weight")]
+        check("power-iteration kernel" in msgs[0], f"(f) {msgs[0]}")
+        check(msgs[1].startswith("NaN in the output of aten."), f"(f) {msgs[1]}")
+        print(f"(f) --debug-nans: a NaN in an SN weight of D raised FloatingPointError "
+              f"'{msgs[0]}'; in G's Dense weight '{msgs[1]}'", flush=True)
+
+    # the fade-in at the shapes one rank of (c) gives it (2 images per rank)
+    cl = torch.channels_last
+    half = {}
+    for shape in FADEIN_HALF_SHAPES:
+        a = torch.randn(shape, device="cuda").contiguous(memory_format=cl)
+        b = torch.randn(shape, device="cuda").contiguous(memory_format=cl)
+        t = timed_in_turns({"kernel": lambda: fd.launch(a, b, 0.37),
+                            "lerp": lambda: torch.lerp(b, a, 0.37),
+                            "plain": lambda: fd.plain_fadein_blend(a, b, 0.37)}, 20)
+        err = float((fd.launch(a, b, 0.37) - fd.plain_fadein_blend(a, b, 0.37)).abs().max())
+        check(err <= 1e-6, f"fade-in at {list(shape)}: {err:.3e} from its plain version")
+        bound = 1e3 * 12 * a.numel() / PEAK_BYTES_PER_S
+        half[tuple(shape)] = t
+        print(f"fadein_blend {list(shape)} channels-last (one rank of (c)): kernel "
+              f"{1e3 * t['kernel']:.2f} us, plain {1e3 * t['plain']:.2f} us, torch.lerp "
+              f"{1e3 * t['lerp']:.2f} us, bound {1e3 * bound:.2f} us, max abs err "
+              f"{err:.3e}  [{card}]", flush=True)
+        del a, b
+    return pi_total, fd_total, half
+
+
 def main() -> None:
     import torch
 
@@ -1532,6 +2046,7 @@ def main() -> None:
                                                         train_loop)
         from gan_lib_tensorflow_tpu_torch.train.pggan_loop import (build_phase,
                                                                    train_pggan_ladder)
+        from gan_lib_tensorflow_tpu_torch.utils.profiler import StepTimer
     except ImportError as e:
         raise SystemExit("chip_smoke FAILED: run it from the repository root "
                          f"(the port's package is missing: {e})")
@@ -1603,18 +2118,19 @@ def main() -> None:
     train_loop(state, step_fn, source, LoopConfig(WARM_STEPS, WARM_STEPS), log_fn)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
+    timer = StepTimer(images_per_step=N_CRITIC * BATCH, device="cuda")
+    timer.start()
     train_loop(state, step_fn, source,
                LoopConfig(WARM_STEPS + TIMED_STEPS, TIMED_STEPS), log_fn)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    timer.tick(TIMED_STEPS)
+    timed = timer.stop()
     main_launches = pi.launches
     n_steps = WARM_STEPS + TIMED_STEPS
     check(main_launches == 6 * n_steps,
           f"kernel launched {main_launches} times in {n_steps} steps, want 6 per step")
-    ips = N_CRITIC * BATCH * TIMED_STEPS / dt
     print(f"metrics: {logs}")
-    print(f"images/s/GPU: {ips:.1f}  ms/step: {1e3 * dt / TIMED_STEPS:.2f}  "
+    print(f"images/s/GPU: {timed['images_per_sec_per_card']:.1f}  "
+          f"ms/step: {1e3 * timed['sec_per_step']:.2f}  "
           f"peak memory: {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB  "
           f"kernel launches: {main_launches} in {n_steps} steps  [{smi.splitlines()[0]}]")
 
@@ -1702,15 +2218,17 @@ def main() -> None:
         pg_step(ph.state, next(pg_source))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
+    timer = StepTimer(images_per_step=ph.batch, device="cuda")
+    timer.start()
     for i in range(PGGAN_WARM, PGGAN_WARM + PGGAN_TIMED):
         ph.state.alpha = ph.alpha_fn(i)
         pg_metrics = pg_step(ph.state, next(pg_source))
-    torch.cuda.synchronize()
-    pg_dt = (time.perf_counter() - t0) / PGGAN_TIMED
+        timer.tick()
+    timed = timer.stop()
+    pg_dt = timed["sec_per_step"]
     check(all(math.isfinite(float(v)) for v in pg_metrics.values()), "non-finite 1024 metrics")
     print(f"PGGAN 1024x1024 transition batch {ph.batch}: images/s/GPU "
-          f"{ph.batch / pg_dt:.2f}  ms/step: {1e3 * pg_dt:.2f}  peak memory: "
+          f"{timed['images_per_sec_per_card']:.2f}  ms/step: {1e3 * pg_dt:.2f}  peak memory: "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB  "
           f"[{smi.splitlines()[0]}]")
     del ph, pg_step, pg_source
@@ -1850,12 +2368,21 @@ def main() -> None:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 14: {time.perf_counter() - t14:.1f} s  [{card}]")
 
+    phase("15 multi-rank: torch.distributed.run on this card (DP, DP x TP, NCCL, trace, NaNs)")
+    t15 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        mr_pi, mr_fd, _ = multi_rank(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 15: {time.perf_counter() - t15:.1f} s  [{card}]")
+
     print(json.dumps({"kernels": [{
         "name": "batched_power_iteration",
         "route": "cuda",
         "source": "gan_lib_tensorflow_tpu_torch/csrc/power_iteration.cu",
         "replaces": "gan_lib_tensorflow_tpu/ops/pallas_kernels.py:63",
-        "launches": main_launches + cond_launches,
+        "launches": main_launches + cond_launches + mr_pi,
         "max_abs_err": err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -1867,7 +2394,7 @@ def main() -> None:
         "route": "cuda",
         "source": "gan_lib_tensorflow_tpu_torch/csrc/fadein_blend.cu",
         "replaces": "gan_lib_tensorflow_tpu/ops/pallas_kernels.py:122",
-        "launches": ladder_launches + pyramid_launches,
+        "launches": ladder_launches + pyramid_launches + mr_fd,
         "max_abs_err": fade_err,
         "ms": fade["ms"],
         "plain_ms": fade["plain_ms"],
@@ -1880,4 +2407,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank-run"]:
+        sgd = sys.argv[2:3] == ["--sgd"]
+        rest = sys.argv[3:] if sgd else sys.argv[2:]
+        rank_run(rest[0], rest[1], rest[2:], sgd=sgd)
+    else:
+        main()

@@ -1,17 +1,24 @@
-"""Shared CLI plumbing (port of the parts of
-``gan_lib_tensorflow_tpu/cli/common.py`` that the SNGAN, SNGAN-projection and
-PGGAN paths use: the flag vocabulary, ``device_cache_kwargs`` and
-``image_source``)."""
+"""Shared CLI plumbing (port of ``gan_lib_tensorflow_tpu/cli/common.py``
+without its XLA compile cache, curves and TensorBoard: the flag vocabulary,
+``configure``, ``maybe_mesh``, ``device_cache_kwargs`` and ``image_source``).
+
+Multi-device runs start one process per rank with ``torchrun
+--nproc_per_node R -m gan_lib_tensorflow_tpu_torch.cli.<x> ...``; a plain
+``python -m`` is one rank. ``--batch-size`` is the global batch."""
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from .. import data
+from ..parallel import Mesh, create_mesh
+from ..utils import debug_nans
 
 DATA_HELP = ("data backend: 'auto' (real CIFAR-10 when it is found, else "
              "synthetic with a note), 'cifar10' (must be found), 'fake' "
@@ -44,7 +51,54 @@ def base_parser(description: str, data_help: str = DATA_HELP) -> argparse.Argume
     p.add_argument("--compute-dtype", default="bf16", choices=["fp32", "bf16"])
     p.add_argument("--device", default="cuda",
                    help="torch device; without CUDA only 'cpu' runs")
+    p.add_argument("--no-mesh", action="store_true",
+                   help="one device, no mesh (refused under more than one rank)")
+    p.add_argument("--tp-shards", type=int, default=1,
+                   help="tensor-parallel ('model' axis) shards: the ranks split as "
+                        "(data = world / tp, model = tp), and the wide weights, "
+                        "their Adam slots and the EMA shard their output features "
+                        "(parallel.train_state_shardings)")
+    p.add_argument("--trace-steps", type=int, default=0,
+                   help="write a torch.profiler trace of N + 1 steps from the "
+                        "run's 10th (under --out-dir/trace)")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="raise FloatingPointError at the first operation that "
+                        "makes a NaN, in forward and backward (slow)")
     return p
+
+
+def configure(args) -> None:
+    """Apply the process-wide debug flags before anything is built."""
+    if getattr(args, "debug_nans", False):
+        debug_nans.enable()
+
+
+def maybe_mesh(args) -> Optional[Mesh]:
+    """The mesh the flags and the launcher ask for, or None for one process
+    (reference ``cli/common.py:115-129``): ``('data',)`` over every rank, or
+    ``(world / tp, tp)`` over ``('data', 'model')`` with ``--tp-shards``.
+    A process that ``torchrun`` started gets a mesh even alone (a one-rank
+    group). ``args.device`` becomes the rank's device."""
+    tp = getattr(args, "tp_shards", 1)
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", 1)))
+    if args.no_mesh and tp > 1:
+        raise SystemExit("--no-mesh and --tp-shards > 1 conflict: tensor "
+                         "parallelism needs the device mesh")
+    if args.no_mesh:
+        if world > 1:
+            print(f"--no-mesh trains on one device, but {world} ranks were "
+                  "started: launch one process, or drop --no-mesh", file=sys.stderr)
+            raise SystemExit(2)
+        return None
+    if world % tp:
+        raise ValueError(f"--tp-shards {tp} does not divide the world size {world}")
+    if "RANK" not in os.environ and not dist.is_initialized():
+        return None
+    mesh = (create_mesh((world // tp, tp), ("data", "model"), device=args.device)
+            if tp > 1 else create_mesh(device=args.device))
+    args.device = str(mesh.device)
+    return mesh
 
 
 def refuse_image_folder(p: argparse.ArgumentParser, path: str, prepack_flag: str,
@@ -70,7 +124,7 @@ def device_cache_kwargs(args) -> dict:
 
 
 def image_source(args, batch_size: int, image_size: int, num_classes: int,
-                 n_micro: int = 1):
+                 n_micro: int = 1, mesh: Optional[Mesh] = None):
     """Resolve --data to a source for ``train_loop``.
 
     'auto' prefers real CIFAR-10 and falls back to synthetic data with a
@@ -78,7 +132,9 @@ def image_source(args, batch_size: int, image_size: int, num_classes: int,
     of ``image_size``, with labels when ``num_classes`` > 0, or a CIFAR-10
     pickle directory) and never falls back. Real data is held on the card
     (``DeviceCachedStore``) when the --device-cache policy allows, else
-    streamed as uint8 by one host worker and normalized on the card."""
+    streamed as uint8 by one host worker and normalized on the card. On a
+    ``mesh`` the on-device sources yield the rank's rows of each global
+    ``batch_size``, and the train loop cuts a stream's batches the same way."""
     def cifar(data_dir=None):
         store = data.Cifar10(batch_size=batch_size, data_dir=data_dir, seed=args.seed)
         kw = device_cache_kwargs(args)
@@ -88,7 +144,7 @@ def image_source(args, batch_size: int, image_size: int, num_classes: int,
             return data.DeviceCachedStore(
                 images=store.images, labels=store.labels, num_classes=10,
                 batch_size=batch_size, n_micro=n_micro, seed=args.seed,
-                device=args.device, max_bytes=kw["budget_bytes"])
+                device=args.device, max_bytes=kw["budget_bytes"], mesh=mesh)
         return data.ThreadedSource(store, num_workers=1)
 
     if args.data in ("auto", "cifar10"):
@@ -118,7 +174,7 @@ def image_source(args, batch_size: int, image_size: int, num_classes: int,
                                  f"{num_classes})")
             return data.packed_training_source(
                 args.data, batch_size=batch_size, n_micro=n_micro, seed=args.seed,
-                device=args.device, **device_cache_kwargs(args))
+                device=args.device, mesh=mesh, **device_cache_kwargs(args))
         if not os.path.isfile(os.path.join(args.data, "data_batch_1")):
             raise FileNotFoundError(f"--data {args.data}: neither a packed store "
                                     f"({data.packed.META_NAME}) nor a CIFAR-10 "
@@ -129,4 +185,4 @@ def image_source(args, batch_size: int, image_size: int, num_classes: int,
         return cifar(data_dir=args.data)
     return data.DeviceFakeImages(batch_size=batch_size, image_size=image_size,
                                  num_classes=num_classes, seed=args.seed,
-                                 n_micro=n_micro, device=args.device)
+                                 n_micro=n_micro, device=args.device, mesh=mesh)

@@ -20,6 +20,11 @@ Usage:
       --ckpt-dir runs/pggan/1024x1024_stabilize/ckpt --resolution 1024 \\
       --data <pyramid store> [--swd-samples 16384]
 
+Under ``torchrun --nproc_per_node R`` the IS/FID eval is data parallel:
+every rank generates and featurizes its rows of each batch (and of the
+real batches), the sums are all-reduced, and rank 0 prints the one-rank
+record. The PGGAN eval is one process's work: rank 0 alone runs it.
+
 Without --inception-weights a seed-fixed random-init InceptionV3 is used:
 comparisons across checkpoints of one run hold, absolute values are not
 Inception-comparable. ``--real-stats-npz PATH`` caches the real moments:
@@ -43,7 +48,7 @@ from .. import data, resolve_device
 from ..eval import compute_statistics, evaluate_generator, perceptual
 from ..eval.inception_v3 import InceptionV3Features
 from ..models import acgan, pggan, sngan
-from ..parallel import prefetch_to_device
+from ..parallel import is_writer, prefetch_to_device, shard_batch
 from ..train import CheckpointManager, eval_state_from_raw
 from . import common
 
@@ -82,6 +87,8 @@ def parse_args(argv=None):
                    help="also write the result record to this file")
     p.add_argument("--device", default="cuda",
                    help="torch device; without CUDA only 'cpu' runs")
+    p.add_argument("--no-mesh", action="store_true",
+                   help="one device, no mesh (refused under more than one rank)")
     args = p.parse_args(argv)
     if args.model == "pggan":
         common.refuse_image_folder(p, args.data, "--resolutions",
@@ -93,7 +100,14 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     if args.model == "sngan_imagenet":  # cli.sample's name for the family
         args.model = "imagenet"
-    out = eval_pggan(args) if args.model == "pggan" else eval_is_fid(args)
+    if args.model == "pggan":
+        if int(os.environ.get("RANK", 0)) != 0:
+            return {}
+        out = eval_pggan(args)
+    else:
+        out = eval_is_fid(args, common.maybe_mesh(args))
+        if not is_writer():
+            return out
     line = json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
                        for k, v in out.items()})
     print(line, flush=True)
@@ -108,10 +122,11 @@ def _extractor_name(args) -> str:
             else "inception_v3_random_init")
 
 
-def real_moments(args, net, image_size: int = 32):
+def real_moments(args, net, image_size: int = 32, mesh=None):
     """Real-data (mu, cov) and the source's name, cached in
     ``--real-stats-npz``. A cache records its extractor; loading it under
-    another is refused, since FID moments do not compare across extractors."""
+    another is refused, since FID moments do not compare across extractors.
+    On a ``mesh`` each rank featurizes its rows; rank 0 writes the cache."""
     cache = args.real_stats_npz
     if cache and os.path.exists(cache):
         d = np.load(cache)
@@ -132,8 +147,8 @@ def real_moments(args, net, image_size: int = 32):
     batches, source = real_image_batches(args, args.device, image_size)
     mu, cov = compute_statistics(
         net, (next(batches) for _ in range(args.n_real // args.batch_size)),
-        net.feature_dim)
-    if cache:
+        net.feature_dim, mesh=mesh)
+    if cache and is_writer():
         np.savez(cache, mu=mu, cov=cov, n_real=args.n_real, source=source,
                  extractor=_extractor_name(args))
         print(f"cached real moments to {cache}", flush=True)
@@ -186,7 +201,7 @@ def _restore(args, dev):
     return eval_state_from_raw(raw)
 
 
-def eval_is_fid(args) -> dict:
+def eval_is_fid(args, mesh=None) -> dict:
     dev = resolve_device(args.device)
     state = _restore(args, dev)
     net = InceptionV3Features(params_npz=args.inception_weights, device=dev)
@@ -203,17 +218,17 @@ def eval_is_fid(args) -> dict:
     g.load_state_dict(state.g)
     g.to(dev)
     sampler = make_sampler(g)
-    real_stats, real_source = real_moments(args, net, image_size)
+    real_stats, real_source = real_moments(args, net, image_size, mesh)
 
     def sample_batch(gen: torch.Generator) -> torch.Tensor:
-        z = torch.randn(args.batch_size, g.z_dim, generator=gen)
+        z = shard_batch(torch.randn(args.batch_size, g.z_dim, generator=gen), mesh)
         return sampler(state, z.to(dev))
 
     out = evaluate_generator(
         sample_batch, net, net.feature_dim, n_samples=args.n_samples,
         batch_size=args.batch_size,
         generator=torch.Generator().manual_seed(args.seed + 1),
-        real_stats=real_stats)
+        real_stats=real_stats, mesh=mesh)
     out["step"] = state.step
     out["extractor"] = _extractor_name(args)
     out["real_source"] = real_source

@@ -36,24 +36,26 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def build(args):
-    """Networks, spec and train state on ``args.device``."""
+def build(args, mesh=None):
+    """Networks, spec and train state on ``args.device`` (on ``mesh``)."""
     dtype = common.compute_dtype(args)
     g = acgan.ACGANGenerator(compute_dtype=dtype)
     d = acgan.ACGANDiscriminator(compute_dtype=dtype)
     spec = acgan.make_acgan_spec(g, d, adversarial=args.adversarial,
                                  aux_weight=args.aux_weight)
     state = create_state(g, d, lr=args.lr, beta1=args.beta1, beta2=args.beta2,
-                         seed=args.seed, device=args.device)
+                         seed=args.seed, device=args.device, mesh=mesh)
     return g, d, spec, state
 
 
 def main(argv=None):
     args = parse_args(argv)
-    g, d, spec, state = build(args)
+    common.configure(args)
+    mesh = common.maybe_mesh(args)
+    g, d, spec, state = build(args, mesh)
     device = next(g.parameters()).device
     source = common.image_source(args, args.batch_size, 32, g.num_classes,
-                                 n_micro=spec.n_critic)
+                                 n_micro=spec.n_critic, mesh=mesh)
     sampler = acgan.make_sampler(g)
     z_grid = torch.randn(GRID, g.z_dim, generator=torch.Generator().manual_seed(args.seed + 1))
     z_grid = z_grid.to(device)
@@ -66,7 +68,8 @@ def main(argv=None):
     cfg = LoopConfig(total_steps=args.steps, log_every=args.log_every,
                      sample_every=args.sample_every,
                      checkpoint_every=args.ckpt_every, out_dir=args.out_dir,
-                     fault_inject_step=args.fault_inject_step)
+                     fault_inject_step=args.fault_inject_step,
+                     trace_steps=args.trace_steps)
     ckpt = CheckpointManager(os.path.join(args.out_dir, "ckpt"))
     try:
         return train_loop(state, make_train_step(spec), source, cfg,

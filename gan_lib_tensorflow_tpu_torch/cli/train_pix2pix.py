@@ -76,17 +76,17 @@ def parse_args(argv=None):
     return args
 
 
-def paired_source(args, threaded: bool = True, n_micro: int = 1):
+def paired_source(args, threaded: bool = True, n_micro: int = 1, mesh=None):
     """The paired source of --data. ``threaded`` (train mode): device
-    renderers and device-cached stores as they are, host sources behind one
-    ``ThreadedSource`` worker; otherwise the bare host source (test mode needs
-    its deterministic ``eval_iter``)."""
+    renderers and device-cached stores as they are (on ``mesh``: the rank's
+    rows), host sources behind one ``ThreadedSource`` worker; otherwise the
+    bare host source (test mode needs its deterministic ``eval_iter``)."""
     if args.data in SYNTHETIC:
         if args.data.startswith("device") and threaded:
             return data.DeviceFakePairedImages(
                 batch_size=args.batch_size, image_size=args.image_size, seed=args.seed,
                 n_micro=n_micro, deterministic_color=args.data == "device-det",
-                device=args.device)
+                device=args.device, mesh=mesh)
         base = data.FakePairedImages(batch_size=args.batch_size, image_size=args.image_size,
                                      seed=args.seed,
                                      deterministic_color=args.data.endswith("-det"))
@@ -98,21 +98,21 @@ def paired_source(args, threaded: bool = True, n_micro: int = 1):
                   seed=args.seed)
         if threaded:
             return data.packed_paired_training_source(
-                args.data, n_micro=n_micro, device=args.device,
+                args.data, n_micro=n_micro, device=args.device, mesh=mesh,
                 **kw, **common.device_cache_kwargs(args))
         base = data.PackedPairedStore(args.data, **kw)
     return data.ThreadedSource(base, num_workers=1) if threaded else base
 
 
-def build(args):
-    """Networks, spec and train state on ``args.device``."""
+def build(args, mesh=None):
+    """Networks, spec and train state on ``args.device`` (on ``mesh``)."""
     dtype = common.compute_dtype(args)
     g = pix2pix.UNetGenerator(args.image_size, args.ngf, compute_dtype=dtype)
     d = pix2pix.PatchGANDiscriminator(args.ndf, compute_dtype=dtype)
     spec = pix2pix.make_pix2pix_spec(g, d, gan_weight=args.gan_weight,
                                      l1_weight=args.l1_weight)
     state = create_state(g, d, lr=args.lr, beta1=args.beta1, beta2=0.999,
-                         seed=args.seed, device=args.device)
+                         seed=args.seed, device=args.device, mesh=mesh)
     return g, d, spec, state
 
 
@@ -129,7 +129,7 @@ def _fixed_pair(args, source, device) -> dict:
 
 def train(args, g, spec, state, ckpt):
     device = next(g.parameters()).device
-    source = paired_source(args, n_micro=spec.n_critic)
+    source = paired_source(args, n_micro=spec.n_critic, mesh=state.mesh)
     fixed = _fixed_pair(args, source, device)
     translator = pix2pix.make_translator(g)
 
@@ -141,7 +141,8 @@ def train(args, g, spec, state, ckpt):
 
     cfg = LoopConfig(total_steps=args.steps, log_every=args.log_every,
                      sample_every=args.sample_every, checkpoint_every=args.ckpt_every,
-                     out_dir=args.out_dir, fault_inject_step=args.fault_inject_step)
+                     out_dir=args.out_dir, fault_inject_step=args.fault_inject_step,
+                     trace_steps=args.trace_steps)
     return train_loop(state, make_train_step(spec), source, cfg, sample_fn=sample_fn,
                       ckpt=ckpt, n_micro=spec.n_critic)
 
@@ -189,9 +190,14 @@ def export(args, g, state) -> str:
 
 def main(argv=None):
     """Returns the trained state (train), the test metrics (test) or the
-    bundle's ``generator.pt2`` path (export)."""
+    bundle's ``generator.pt2`` path (export). Test and export are one
+    process's work: under more than one rank only rank 0 does it."""
     args = parse_args(argv)
-    g, _, spec, state = build(args)
+    common.configure(args)
+    if args.mode != "train" and int(os.environ.get("RANK", 0)) != 0:
+        return None
+    mesh = common.maybe_mesh(args) if args.mode == "train" else None
+    g, _, spec, state = build(args, mesh)
     ckpt = CheckpointManager(os.path.join(args.out_dir, "ckpt"))
     try:
         if args.mode == "train":

@@ -10,6 +10,8 @@ Usage: python -m gan_lib_tensorflow_tpu_torch.cli.train_sngan --data fake --step
        python -m gan_lib_tensorflow_tpu_torch.cli.train_sngan \
            --data data/cifar-10-batches-py [--device-cache auto|on|off]
        python -m gan_lib_tensorflow_tpu_torch.cli.train_sngan --data fake --num-classes 10
+       torchrun --nproc_per_node 2 -m gan_lib_tensorflow_tpu_torch.cli.train_sngan \
+           --data fake [--tp-shards 2] [--device cpu]
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from ..data import DeviceCachedStore
 from ..eval import compute_statistics, evaluate_generator
 from ..eval.inception_v3 import InceptionV3Features
 from ..models import sngan
+from ..parallel import shard_batch
 from ..train import (CheckpointManager, LoopConfig, create_state,
                      make_train_step, train_loop)
 from ..train.loop import device_batches
@@ -53,8 +56,8 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def build(args):
-    """Networks, spec and train state on ``args.device``.
+def build(args, mesh=None):
+    """Networks, spec and train state on ``args.device`` (on ``mesh``).
 
     The lr decays linearly to 0 over ``--lr-decay-steps`` (default
     ``--steps``) counted in each optimizer's OWN updates, as the reference's
@@ -72,7 +75,7 @@ def build(args):
 
     state = create_state(g, d, lr=args.lr, beta1=args.beta1, beta2=args.beta2,
                          ema_decay=args.ema_decay, seed=args.seed,
-                         lr_lambda=lr_lambda, device=args.device)
+                         lr_lambda=lr_lambda, device=args.device, mesh=mesh)
     return g, d, spec, state
 
 
@@ -90,32 +93,37 @@ def real_batches(args, source, n_batches: int):
         yield next(real)["image"][0]
 
 
-def make_eval_fn(args, sampler, z_dim: int, device: torch.device, source=None):
+def make_eval_fn(args, sampler, z_dim: int, device: torch.device, source=None,
+                 mesh=None):
     """``eval_fn(state, it)`` -> IS/FID of ``--eval-samples`` EMA samples.
-    The real moments are computed once, here, at batch 100."""
+    The real moments are computed once, here, at batch 100. On a ``mesh``
+    each rank samples and featurizes its rows of every batch."""
     net = InceptionV3Features(params_npz=args.inception_weights, device=args.device)
     n_real = max(args.eval_samples // EVAL_BATCH, 1)
     real_stats = compute_statistics(net, real_batches(args, source, n_real),
-                                    net.feature_dim)
+                                    net.feature_dim, mesh=mesh)
 
     def eval_fn(state, it: int) -> dict:
         def sample_batch(gen: torch.Generator) -> torch.Tensor:
-            return sampler(state, torch.randn(EVAL_BATCH, z_dim, generator=gen).to(device))
+            z = shard_batch(torch.randn(EVAL_BATCH, z_dim, generator=gen), mesh)
+            return sampler(state, z.to(device))
 
         return evaluate_generator(
             sample_batch, net, net.feature_dim, n_samples=args.eval_samples,
             batch_size=EVAL_BATCH, generator=torch.Generator().manual_seed(args.seed + it),
-            real_stats=real_stats)
+            real_stats=real_stats, mesh=mesh)
 
     return eval_fn
 
 
 def main(argv=None):
     args = parse_args(argv)
-    g, d, spec, state = build(args)
+    common.configure(args)
+    mesh = common.maybe_mesh(args)
+    g, d, spec, state = build(args, mesh)
     device = next(g.parameters()).device
     source = common.image_source(args, args.batch_size, 32, 10,
-                                 n_micro=spec.n_critic)
+                                 n_micro=spec.n_critic, mesh=mesh)
     sampler = sngan.make_sampler(g)
     z_grid = torch.randn(64, g.z_dim, generator=torch.Generator().manual_seed(args.seed + 1))
     z_grid = z_grid.to(device)
@@ -124,13 +132,14 @@ def main(argv=None):
         save_image_grid(sampler(st, z_grid).cpu().numpy(),
                         os.path.join(args.out_dir, "samples", f"sample_{it:06d}.png"))
 
-    eval_fn = (make_eval_fn(args, sampler, g.z_dim, device, source)
+    eval_fn = (make_eval_fn(args, sampler, g.z_dim, device, source, mesh)
                if args.eval_every else None)
     cfg = LoopConfig(total_steps=args.steps, log_every=args.log_every,
                      sample_every=args.sample_every,
                      checkpoint_every=args.ckpt_every,
                      eval_every=args.eval_every, out_dir=args.out_dir,
-                     fault_inject_step=args.fault_inject_step)
+                     fault_inject_step=args.fault_inject_step,
+                     trace_steps=args.trace_steps)
     ckpt = CheckpointManager(os.path.join(args.out_dir, "ckpt"))
     try:
         return train_loop(state, make_train_step(spec), source, cfg,

@@ -50,8 +50,8 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def build(args):
-    """Networks, spec and train state on ``args.device``. Each optimizer's
+def build(args, mesh=None):
+    """Networks, spec and train state on ``args.device`` (on ``mesh``). Each optimizer's
     lr decays linearly to 0 over --steps of its OWN updates, as the
     reference's optax schedules count them."""
     dtype = common.compute_dtype(args)
@@ -66,7 +66,7 @@ def build(args):
 
     state = create_state(g, d, lr=args.g_lr, d_lr=args.d_lr, beta1=args.beta1,
                          beta2=args.beta2, ema_decay=args.ema_decay, seed=args.seed,
-                         lr_lambda=lr_lambda, device=args.device)
+                         lr_lambda=lr_lambda, device=args.device, mesh=mesh)
     return g, d, spec, state
 
 
@@ -74,7 +74,7 @@ def _has_npz(path: str) -> bool:
     return os.path.isdir(path) and bool(glob.glob(os.path.join(path, "*.npz")))
 
 
-def image_source(args, n_micro: int):
+def image_source(args, n_micro: int, mesh=None):
     """Resolve --data (see the module docstring); a path never falls back."""
     if args.data not in ("auto", "fake", "cifar10"):
         if not os.path.exists(args.data):
@@ -90,14 +90,16 @@ def image_source(args, n_micro: int):
                              f"package does not use: pack them first")
     # 'auto' and 'fake' render class blobs on the device at 128^2
     return common.image_source(args, args.batch_size, IMAGE_SIZE, args.num_classes,
-                               n_micro=n_micro)
+                               n_micro=n_micro, mesh=mesh)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    g, d, spec, state = build(args)
+    common.configure(args)
+    mesh = common.maybe_mesh(args)
+    g, d, spec, state = build(args, mesh)
     device = next(g.parameters()).device
-    source = image_source(args, spec.n_critic)
+    source = image_source(args, spec.n_critic, mesh)
     sampler = sngan.make_sampler(g)
     z_grid = torch.randn(GRID, g.z_dim,
                          generator=torch.Generator().manual_seed(args.seed + 1)).to(device)
@@ -109,7 +111,8 @@ def main(argv=None):
     cfg = LoopConfig(total_steps=args.steps, log_every=args.log_every,
                      sample_every=args.sample_every,
                      checkpoint_every=args.ckpt_every, out_dir=args.out_dir,
-                     fault_inject_step=args.fault_inject_step)
+                     fault_inject_step=args.fault_inject_step,
+                     trace_steps=args.trace_steps)
     ckpt = CheckpointManager(os.path.join(args.out_dir, "ckpt"))
     try:
         return train_loop(state, make_train_step(spec), source, cfg,

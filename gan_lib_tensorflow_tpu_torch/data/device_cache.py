@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..parallel.sharding import data_rows
 from .base import normalize_u8
 from .packed import META_NAME, PackedImageStore, PackedPairedStore, crop_pairs
 from .pipeline import ThreadedSource
@@ -52,7 +53,7 @@ def _fits_cache(path: str, policy: str, budget_bytes: int) -> bool:
 
 def packed_training_source(path: str, batch_size: int, n_micro: int = 1,
                            seed: int = 0, device="cuda", policy: str = "auto",
-                           budget_bytes: int = DEFAULT_CACHE_BYTES):
+                           budget_bytes: int = DEFAULT_CACHE_BYTES, mesh=None):
     """The way to feed a packed store to the train loop.
 
     - ``auto``: ``DeviceCachedStore`` when the store fits ``budget_bytes``,
@@ -61,10 +62,14 @@ def packed_training_source(path: str, batch_size: int, n_micro: int = 1,
     - ``on``: the device cache, whose constructor refuses a store above the
       budget with a sized error.
     - ``off``: always stream.
+
+    On a ``mesh`` the cache yields the rank's rows; a stream yields global
+    batches, which the train loop cuts to the rank's rows.
     """
     if _fits_cache(path, policy, budget_bytes):
         return DeviceCachedStore(path, batch_size=batch_size, n_micro=n_micro,
-                                 seed=seed, device=device, max_bytes=budget_bytes)
+                                 seed=seed, device=device, max_bytes=budget_bytes,
+                                 mesh=mesh)
     return ThreadedSource(PackedImageStore(path, batch_size=batch_size, seed=seed,
                                            wire_dtype="uint8"),
                           num_workers=1)
@@ -84,7 +89,9 @@ def _epoch_permutation(store, epoch: int) -> np.ndarray:
 class DeviceCachedStore:
     """Infinite ``{"image": [n_micro, B, H, W, C] float32, "label":
     [n_micro, B] int32}`` batches on ``device``, gathered from a store held
-    there. ``yields_stacks``: the loop takes its batches as they are."""
+    there. ``yields_stacks``: the loop takes its batches as they are. On a
+    ``mesh`` every rank holds the whole store (the reference replicates it),
+    draws the global indices and gathers only its rows."""
 
     yields_stacks = True
 
@@ -92,7 +99,9 @@ class DeviceCachedStore:
                  n_micro: int = 1, seed: int = 0, device="cuda",
                  max_bytes: Optional[int] = None,
                  images: Optional[np.ndarray] = None,
-                 labels: Optional[np.ndarray] = None, num_classes: int = 0):
+                 labels: Optional[np.ndarray] = None, num_classes: int = 0,
+                 mesh=None):
+        self.mesh, self._rows = mesh, data_rows(batch_size, mesh)
         if path is not None:
             store = PackedImageStore(path, batch_size=batch_size, seed=seed)
             images = np.array(store.images)  # read the memmap's pages once
@@ -165,7 +174,7 @@ class DeviceCachedStore:
         while True:
             idx = self.indices_for(self._pos)
             self._pos += 1
-            yield self.gather(idx)
+            yield self.gather(idx[:, self._rows])
 
     def sequential_batches(self, batch_size: int, n_batches: int) -> Iterator[torch.Tensor]:
         """Normalized ``[B, H, W, C]`` batches of the first ``n_batches *
@@ -184,7 +193,7 @@ def packed_paired_training_source(path: str, batch_size: int, image_size: int = 
                                   which_direction: str = "AtoB", flip: bool = True,
                                   n_micro: int = 1, seed: int = 0, device="cuda",
                                   policy: str = "auto",
-                                  budget_bytes: int = DEFAULT_CACHE_BYTES):
+                                  budget_bytes: int = DEFAULT_CACHE_BYTES, mesh=None):
     """The way to feed a paired store to pix2pix's train loop, by the
     policy rule of ``packed_training_source``: ``DeviceCachedPairedStore``,
     or one ``ThreadedSource`` worker streaming ``PackedPairedStore``'s
@@ -193,7 +202,7 @@ def packed_paired_training_source(path: str, batch_size: int, image_size: int = 
               which_direction=which_direction, flip=flip, seed=seed)
     if _fits_cache(path, policy, budget_bytes):
         return DeviceCachedPairedStore(path, n_micro=n_micro, device=device,
-                                       max_bytes=budget_bytes, **kw)
+                                       max_bytes=budget_bytes, mesh=mesh, **kw)
     return ThreadedSource(PackedPairedStore(path, **kw), num_workers=1)
 
 
@@ -208,13 +217,16 @@ class DeviceCachedPairedStore:
     reference's: ``_epoch_permutation`` for the indices, ``default_rng((seed,
     pos, 1))`` for the offsets and flips), so a resumed run replays the
     stream; a batch equals ``PackedPairedStore``'s host jitter of the same
-    controls bit for bit."""
+    controls bit for bit. On a ``mesh`` every rank draws the global controls
+    and gathers its rows."""
 
     yields_stacks = True
 
     def __init__(self, path: str, batch_size: int = 1, image_size: int = 256,
                  which_direction: str = "AtoB", flip: bool = True, n_micro: int = 1,
-                 seed: int = 0, device="cuda", max_bytes: Optional[int] = None):
+                 seed: int = 0, device="cuda", max_bytes: Optional[int] = None,
+                 mesh=None):
+        self.mesh, self._rows = mesh, data_rows(batch_size, mesh)
         host = PackedPairedStore(path, batch_size=batch_size, image_size=image_size,
                                  which_direction=which_direction, flip=flip, seed=seed)
         if max_bytes is not None and host.images.nbytes > max_bytes:
@@ -233,14 +245,14 @@ class DeviceCachedPairedStore:
         self._steps_per_epoch = self.n // take
         self._offsets = host._offsets()
         self.device = resolve_device(device)
-        self._rows = torch.from_numpy(np.array(host.images)).to(self.device)
+        self._store = torch.from_numpy(np.array(host.images)).to(self.device)
         self._pos = 0
 
     def __len__(self) -> int:
         return self.n
 
     def nbytes_resident(self) -> int:
-        return int(self._rows.nbytes)
+        return int(self._store.nbytes)
 
     def set_stream_position(self, pos: int) -> None:
         """Make the next batch batch ``pos`` of the stream (the train loop
@@ -258,13 +270,13 @@ class DeviceCachedPairedStore:
         return idx, oy, ox, fl
 
     def gather(self, idx, oy, ox, fl) -> dict:
-        """The ``[n_micro, B, c, c, 3]`` stacks of these controls, on the
-        device."""
+        """The ``[n_micro, b, c, c, 3]`` stacks of these controls (each
+        ``[n_micro * b]``), on the device."""
         ctl = torch.from_numpy(np.stack([idx, oy, ox, fl]).astype(np.int64)).to(self.device)
         c = self.image_size
-        inp, tgt = crop_pairs(self._rows, ctl[0], ctl[1], ctl[2], ctl[3].bool(), c,
+        inp, tgt = crop_pairs(self._store, ctl[0], ctl[1], ctl[2], ctl[3].bool(), c,
                               *self._offsets)
-        shape = (self.n_micro, self.batch_size, c, c, inp.shape[-1])
+        shape = (self.n_micro, -1, c, c, inp.shape[-1])
         return {"input": inp.view(shape), "target": tgt.view(shape)}
 
     def __iter__(self) -> Iterator[dict]:
@@ -272,4 +284,5 @@ class DeviceCachedPairedStore:
         while True:
             controls = self.controls_for(self._pos)
             self._pos += 1
-            yield self.gather(*controls)
+            yield self.gather(*(c.reshape(self.n_micro, -1)[:, self._rows].reshape(-1)
+                                for c in controls))

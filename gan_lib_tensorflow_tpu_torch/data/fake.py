@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..parallel.sharding import data_rows, shard_batch
 from .base import DataSource
 
 _MAX_CLASS_TABLE = 1024
@@ -154,15 +155,19 @@ def _seed_stream(gen: torch.Generator, seed: int, pos: int) -> None:
 class DeviceFakeImages:
     """Yields ``{"image": [n_micro, B, S, S, 3] float32 NHWC, "label":
     [n_micro, B] int32}`` on ``device``, forever, in the ``blobs`` or
-    ``rich`` style."""
+    ``rich`` style. On a ``mesh`` each rank renders the global batch and
+    yields its rows of it, so the ranks' rows make up the one-rank batch bit
+    for bit (``render`` is the global batch)."""
 
     yields_stacks = True
 
     def __init__(self, batch_size: int = 64, image_size: int = 32,
                  num_classes: int = 10, seed: int = 0, n_micro: int = 1,
-                 style: str = "blobs", device="cuda"):
+                 style: str = "blobs", device="cuda", mesh=None):
         _check_style(style)
         dev = resolve_device(device)
+        data_rows(batch_size, mesh)  # the global batch must divide over 'data'
+        self.mesh = mesh
         self.batch_size, self.n_micro, self.num_classes = batch_size, n_micro, num_classes
         self.style = style
         cxy, color, sigma = _class_table(num_classes)
@@ -220,7 +225,7 @@ class DeviceFakeImages:
 
     def __iter__(self):
         while True:
-            yield self.render()
+            yield shard_batch(self.render(), self.mesh, leading_stack_dims=1)
 
 
 class FakePairedImages(DataSource):
@@ -276,13 +281,17 @@ class DeviceFakePairedImages:
     geometry and color rules (a distribution twin: the random streams
     differ, as the reference's device twin differs from its host one). The
     input is the target's ``edge_map``, summed in numpy's order, so it
-    equals the host function of the same target."""
+    equals the host function of the same target. On a ``mesh`` each rank
+    yields its rows of the global batch, as ``DeviceFakeImages`` does."""
 
     yields_stacks = True
 
     def __init__(self, batch_size: int = 1, image_size: int = 256, seed: int = 0,
-                 n_micro: int = 1, deterministic_color: bool = False, device="cuda"):
+                 n_micro: int = 1, deterministic_color: bool = False, device="cuda",
+                 mesh=None):
         dev = resolve_device(device)
+        data_rows(batch_size, mesh)  # the global batch must divide over 'data'
+        self.mesh = mesh
         self.batch_size, self.n_micro = batch_size, n_micro
         self.deterministic_color = deterministic_color
         s = image_size
@@ -325,4 +334,4 @@ class DeviceFakePairedImages:
 
     def __iter__(self):
         while True:
-            yield self.render()
+            yield shard_batch(self.render(), self.mesh, leading_stack_dims=1)

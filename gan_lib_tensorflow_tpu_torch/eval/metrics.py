@@ -13,6 +13,11 @@ split sums are taken per split over the batch's contiguous rows (a batch
 covers consecutive sample positions), not with ``index_add_`` /
 ``scatter_add_``, which use atomics on CUDA and are not deterministic. The
 sample and split counts are host integers: they follow from the batch sizes.
+
+With a ``mesh`` (reference ``metrics.py:95-130``) each rank featurizes its
+rows of every global batch and adds them at their global positions; the
+sums are all-reduced over 'data' once, when the moments or IS are read, so
+every rank gets the one-rank statistics.
 """
 
 from __future__ import annotations
@@ -22,6 +27,9 @@ from typing import Callable, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..parallel.sharding import data_rows, shard_batch
 
 
 @dataclasses.dataclass
@@ -84,12 +92,15 @@ class DeviceEvalAccumulator:
     sums ``s1`` and ``s2`` (an fp32 ``matmul``) and, for each IS split the
     batch's positions fall in, ``plogp`` (sum of sum_y p log p) and ``py``
     (sum of p). Positions past ``splits * split_size`` count for FID only:
-    the reference truncates IS to a multiple of the split count.
+    the reference truncates IS to a multiple of the split count. On a
+    ``mesh`` ``add_images`` takes the rank's rows of a global batch.
     """
 
     def __init__(self, feature_fn: Callable, dim: int, *, splits: int = 0,
-                 split_size: int = 0):
+                 split_size: int = 0, mesh=None):
         self.feature_fn = feature_fn
+        self.mesh = mesh
+        self._reduced = False
         self.dim = dim
         self.num_classes = feature_fn.num_classes
         self.splits = splits
@@ -114,7 +125,10 @@ class DeviceEvalAccumulator:
         acc = self._acc
         acc["s1"] += f.sum(0)
         acc["s2"] += torch.matmul(f.T, f)
-        start, b = self._count, f.shape[0]
+        b = f.shape[0]
+        d = 1 if self.mesh is None else self.mesh.size("data")
+        self._split_counts(self._count, b * d)
+        start = self._count + data_rows(b * d, self.mesh).start
         if self.splits:
             p = torch.softmax(logits.float(), -1)
             plogp = (p * torch.log(p + 1e-16)).sum(-1)
@@ -125,8 +139,23 @@ class DeviceEvalAccumulator:
                 hi = min((s + 1) * self.split_size - start, b)
                 acc["plogp"][s] += plogp[lo:hi].sum()
                 acc["py"][s] += p[lo:hi].sum(0)
-                self._split_n[s] += hi - lo
-        self._count += b
+        self._count += b * d
+
+    def _split_counts(self, start: int, b: int) -> None:
+        """Count the global positions ``[start, start + b)`` into the IS
+        splits they fall in."""
+        for s in range(start // self.split_size,
+                       min((start + b - 1) // self.split_size, self.splits - 1) + 1):
+            lo, hi = max(s * self.split_size, start), min((s + 1) * self.split_size, start + b)
+            self._split_n[s] += max(hi - lo, 0)
+
+    def _sums(self) -> dict:
+        """The sums, all-reduced over 'data' the first time on a mesh."""
+        if self.mesh is not None and self.mesh.size("data") > 1 and not self._reduced:
+            for t in self._acc.values():
+                dist.all_reduce(t, group=self.mesh.group("data"))
+            self._reduced = True
+        return self._acc
 
     @property
     def count(self) -> int:
@@ -136,8 +165,9 @@ class DeviceEvalAccumulator:
         """The one host transfer of the FID sums: mu ``(D,)``, cov ``(D, D)``
         in float64."""
         n = float(self._count)
-        mu = self._acc["s1"].cpu().numpy().astype(np.float64) / n
-        s2 = self._acc["s2"].cpu().numpy().astype(np.float64)
+        acc = self._sums()
+        mu = acc["s1"].cpu().numpy().astype(np.float64) / n
+        s2 = acc["s2"].cpu().numpy().astype(np.float64)
         return mu, (s2 - n * np.outer(mu, mu)) / max(n - 1, 1)
 
     def inception_score(self) -> Tuple[float, float]:
@@ -146,19 +176,21 @@ class DeviceEvalAccumulator:
         if not self.splits or not (ns > 0).all():
             raise ValueError(f"IS needs >= {self.splits * self.split_size} "
                              f"samples in {self.splits} splits; split counts {ns}")
-        plogp = self._acc["plogp"].cpu().numpy().astype(np.float64) / ns
-        py = self._acc["py"].cpu().numpy().astype(np.float64) / ns[:, None]
+        acc = self._sums()
+        plogp = acc["plogp"].cpu().numpy().astype(np.float64) / ns
+        py = acc["py"].cpu().numpy().astype(np.float64) / ns[:, None]
         scores = np.exp(plogp - (py * np.log(py + 1e-16)).sum(-1))
         return float(scores.mean()), float(scores.std())
 
 
 def compute_statistics(feature_fn: Callable, batches: Iterable[torch.Tensor],
-                       dim: int) -> Tuple[np.ndarray, np.ndarray]:
+                       dim: int, mesh=None) -> Tuple[np.ndarray, np.ndarray]:
     """(mu, cov) of ``feature_fn``'s features over image batches ([-1, 1]
-    NHWC tensors), accumulated on their device."""
-    acc = DeviceEvalAccumulator(feature_fn, dim)
+    NHWC tensors), accumulated on their device; on a ``mesh`` each rank
+    featurizes its rows of every batch."""
+    acc = DeviceEvalAccumulator(feature_fn, dim, mesh=mesh)
     for imgs in batches:
-        acc.add_images(imgs)
+        acc.add_images(shard_batch(imgs, mesh))
     return acc.moments()
 
 
@@ -167,17 +199,19 @@ def evaluate_generator(sample_batch_fn: Callable[[torch.Generator], torch.Tensor
                        batch_size: int = 100,
                        generator: Optional[torch.Generator] = None,
                        real_stats: Optional[Tuple[np.ndarray, np.ndarray]] = None,
-                       splits: int = 10) -> dict:
+                       splits: int = 10, mesh=None) -> dict:
     """The reference's eval: ``n_samples`` rounded down to whole batches of
     ``sample_batch_fn(generator)`` (each call draws its noise from
     ``generator``), IS over ``splits`` splits and, given real moments, FID.
-    ``samples_evaluated`` / ``samples_dropped`` report the rounding."""
+    ``samples_evaluated`` / ``samples_dropped`` report the rounding. On a
+    ``mesh`` ``sample_batch_fn`` returns the rank's rows of each global
+    batch of ``batch_size`` (``parallel.shard_batch`` of its noise)."""
     generator = generator if generator is not None else torch.Generator().manual_seed(0)
     n_batches = max(n_samples // batch_size, 1)
     total = n_batches * batch_size
     is_n = (total // splits) * splits
     acc = DeviceEvalAccumulator(feature_fn, dim, splits=splits,
-                                split_size=max(is_n // splits, 1))
+                                split_size=max(is_n // splits, 1), mesh=mesh)
     for _ in range(n_batches):
         acc.add_images(sample_batch_fn(generator))
     is_mean, is_std = acc.inception_score()

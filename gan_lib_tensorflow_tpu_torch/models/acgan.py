@@ -28,6 +28,7 @@ from torch.func import functional_call
 
 from ..losses import acgan_aux_loss, bce_d_loss, bce_g_loss, hinge_d_loss, hinge_g_loss
 from ..ops import BatchNorm, Conv, ConvTranspose, Dense, dropout
+from ..parallel.sharding import global_batch, local_rows
 from ..train.step import GANSpec
 
 
@@ -152,8 +153,9 @@ def make_acgan_spec(g_model: ACGANGenerator, d_model: ACGANDiscriminator,
     def d_loss(real, fake, alpha: float, noise, u_gp, labels, masks=None):
         real_labels, fake_labels = labels
         n = real.shape[0]
-        if masks is None:
-            masks = d_model.draw_masks(2 * n, noise)
+        if masks is None:  # of the global [real; fake]; the rank keeps its rows
+            masks = d_model.draw_masks(2 * global_batch(n), noise)
+        masks = [local_rows(m, parts=2) for m in masks]
         adv, cls = d_model(torch.cat([real, fake], dim=0), masks)
         d_adv = adv_d(adv[:n], adv[n:])
         d_aux = acgan_aux_loss(cls[:n], real_labels) + acgan_aux_loss(cls[n:], fake_labels)
@@ -165,8 +167,8 @@ def make_acgan_spec(g_model: ACGANGenerator, d_model: ACGANDiscriminator,
     def g_loss(z: torch.Tensor, alpha: float, labels: torch.Tensor, noise, masks=None):
         fake = g_model(z, labels, train=True)
         if masks is None:
-            masks = d_model.draw_masks(z.shape[0], noise)
-        adv, cls = d_model(fake, masks)
+            masks = d_model.draw_masks(global_batch(z.shape[0]), noise)
+        adv, cls = d_model(fake, [local_rows(m) for m in masks])
         g_adv = adv_g(adv)
         g_aux = acgan_aux_loss(cls, labels)
         return g_adv + aux_weight * g_aux, {"g_adv": g_adv.detach(), "g_aux": g_aux.detach()}

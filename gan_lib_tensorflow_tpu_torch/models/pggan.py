@@ -38,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from ..losses import drift_penalty, gradient_penalty, wgan_d_loss, wgan_g_loss
 from ..ops import (Conv, Dense, DownsampleConv, UpsampleConv, downsample_avg,
                    fadein_blend, minibatch_stddev, pixel_norm, upsample_nearest)
+from ..parallel.sharding import global_batch, local_rows
 from ..train.step import GANSpec
 
 # Karras channel schedule (fmap_base 8192, cap 512), scaled by width_mul for
@@ -253,9 +254,9 @@ def make_pggan_spec(g_model: PGGANGenerator, d_model: PGGANDiscriminator,
                u_gp: Optional[torch.Tensor], labels=None, masks=None):
         real_logits = d_model(real, alpha)
         fake_logits = d_model(fake, alpha)
-        if u_gp is None:
-            u_gp = torch.rand((real.shape[0],) + (1,) * (real.dim() - 1),
-                              device=real.device, generator=noise)
+        if u_gp is None:  # drawn at the global batch; the rank keeps its rows
+            u_gp = local_rows(torch.rand((global_batch(real.shape[0]),) + (1,) * (real.dim() - 1),
+                                         device=real.device, generator=noise))
         gp = gradient_penalty(lambda x: d_model(x, alpha), real, fake, u_gp)
         wd = wgan_d_loss(real_logits, fake_logits)
         loss = wd + gp_weight * gp + drift_weight * drift_penalty(real_logits)

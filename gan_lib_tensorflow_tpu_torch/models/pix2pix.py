@@ -34,6 +34,7 @@ from torch import nn
 
 from ..losses import bce_d_loss, bce_g_loss, l1_loss
 from ..ops import BatchNorm, Conv, ConvTranspose, dropout
+from ..parallel.sharding import global_batch, local_rows
 from ..train.step import GANSpec
 
 N_DROPOUT = 3  # decoder levels with dropout
@@ -167,10 +168,11 @@ def make_pix2pix_spec(g_model: UNetGenerator, d_model: PatchGANDiscriminator,
 
     def d_loss(micro, noise, masks=None):
         inp, tgt = micro["input"], micro["target"]
-        if masks is None:
-            masks = g_model.draw_masks(inp.shape[0], noise)
+        if masks is None:  # of the global batch; the rank keeps its rows
+            masks = g_model.draw_masks(global_batch(inp.shape[0]), noise)
         with torch.no_grad():
-            fake = g_model(inp, masks, train=True, update_stats=False)
+            fake = g_model(inp, [local_rows(m) for m in masks], train=True,
+                           update_stats=False)
         real_logits = d_model(inp, tgt, train=True)
         fake_logits = d_model(inp, fake, train=True)
         loss = bce_d_loss(real_logits, fake_logits)
@@ -179,8 +181,8 @@ def make_pix2pix_spec(g_model: UNetGenerator, d_model: PatchGANDiscriminator,
     def g_loss(micro, noise, masks=None):
         inp, tgt = micro["input"], micro["target"]
         if masks is None:
-            masks = g_model.draw_masks(inp.shape[0], noise)
-        fake = g_model(inp, masks, train=True)
+            masks = g_model.draw_masks(global_batch(inp.shape[0]), noise)
+        fake = g_model(inp, [local_rows(m) for m in masks], train=True)
         gan = bce_g_loss(d_model(inp, fake, train=True, update_stats=False))
         l1 = l1_loss(tgt, fake)
         return gan_weight * gan + l1_weight * l1, {"g_gan": gan.detach(), "g_l1": l1.detach()}

@@ -19,6 +19,7 @@ from typing import Callable
 
 import torch
 
+from ..utils.debug_nans import check_kernel_output
 from .cuda_lib import KernelLibrary
 
 # Launches of the CUDA kernel in this process (the plain version does not
@@ -74,6 +75,7 @@ def launch(a: torch.Tensor, b: torch.Tensor, alpha: float) -> torch.Tensor:
                                   alpha, 1.0 - alpha, a.numel(), stream)
     library.check(err, "fade-in blend kernel")
     launches += 1
+    check_kernel_output("fade-in blend kernel", out)
     return out
 
 

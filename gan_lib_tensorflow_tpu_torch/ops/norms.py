@@ -9,6 +9,12 @@ every statistic is float32, and the output is cast to ``compute_dtype``.
 ``groups`` splits the batch into equal microbatches with their own batch
 statistics: the reference's vmap over the n_critic fake microbatches
 (``models/sngan.py:160-181``), run as one batched forward here.
+
+Inside a ``parallel.sharded_step`` the batch statistics are the global
+batch's, as the reference's are under GSPMD: batch norm all-reduces its
+``[sum x, sum x^2]`` over the 'data' ranks, and minibatch stddev its
+group sums, both differentiably, so the gradients carry the terms that
+cross ranks and the running statistics stay equal on every rank.
 """
 
 from __future__ import annotations
@@ -16,8 +22,11 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import active
+from ..parallel.sharding import global_batch, sum_over_data
 from .layers import Embedding
 
 
@@ -54,8 +63,10 @@ class BatchNorm(nn.Module):
             xg = xf.reshape(groups, x.shape[0] // groups, *x.shape[1:])
             dims = (1,) + tuple(range(3, xg.dim()))
             gshape = (groups, 1, -1) + (1,) * (x.dim() - 2)
-            mean = xg.mean(dim=dims).view(gshape)
-            mean2 = (xg * xg).mean(dim=dims).view(gshape)
+            # the global batch's moments: one all-reduce of both sums
+            count = global_batch(xg[0].numel() // xg.shape[2])
+            sums = sum_over_data(torch.stack([xg.sum(dim=dims), (xg * xg).sum(dim=dims)]))
+            mean, mean2 = (sums / count).view(2, *gshape).unbind(0)
             var = torch.clamp(mean2 - mean * mean, min=0.0)
             if update_stats:
                 if groups != 1:
@@ -110,14 +121,36 @@ def minibatch_stddev(x: torch.Tensor, group_size: int = 4,
     """PGGAN minibatch stddev (reference ``norms.py:164-182``): the batch
     splits as ``reshape(g, n // g, ...)``, so sample i is in group i % (n//g);
     per group the float32 stddev over its g members, averaged over C, H, W,
-    is appended as one constant channel, last. x: NCHW."""
-    n, c, h, w = x.shape
+    is appended as one constant channel, last. x: NCHW.
+
+    In a sharded step n is the global batch, and a group's members lie on
+    several ranks: each rank adds its contiguous rows into the ``[n//g,
+    ...]`` group slots, the slot sums are all-reduced, and the centred
+    squares take a second pass, as the reference computes the mean first
+    and the squares after. Outside one the rank holds every row, and the
+    slot sums are the group sums."""
+    n_loc, c, h, w = x.shape
+    n = global_batch(n_loc)
     g = min(group_size, n)
     if n % g:
         raise ValueError(f"batch {n} not divisible by group size {g}")
-    xf = x.float().reshape(g, n // g, c, h, w)
-    mean = xf.mean(dim=0, keepdim=True)
-    var = torch.mean((xf - mean) ** 2, dim=0)
-    avg = torch.sqrt(var + epsilon).mean(dim=(1, 2, 3), keepdim=True)  # [n//g, 1, 1, 1]
-    feat = avg[None].expand(g, n // g, 1, h, w).reshape(n, 1, h, w)
+    m = n // g
+    # this rank's rows fill slots first, first + 1, ... (mod m) in turn: pad
+    # them to whole rounds of m and add the rounds; a fixed order everywhere
+    mesh = active()
+    first = 0 if mesh is None else mesh.coord("data") * n_loc % m
+    rounds = -(-(first + n_loc) // m)
+
+    def slot_sums(t: torch.Tensor) -> torch.Tensor:
+        padded = F.pad(t, (0, 0, 0, 0, 0, 0, first, rounds * m - first - n_loc))
+        return sum_over_data(padded.reshape(rounds, m, *t.shape[1:]).sum(dim=0))
+
+    def per_row(t: torch.Tensor) -> torch.Tensor:  # slot values back to the rows
+        return t.repeat(rounds, 1, 1, 1)[first:first + n_loc]
+
+    xf = x.float()
+    mean = slot_sums(xf) / g
+    var = slot_sums((xf - per_row(mean)) ** 2) / g
+    avg = torch.sqrt(var + epsilon).mean(dim=(1, 2, 3), keepdim=True)  # [m, 1, 1, 1]
+    feat = per_row(avg).expand(n_loc, 1, h, w)
     return torch.cat([x, feat.to(x.dtype)], dim=1)

@@ -28,6 +28,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..utils.debug_nans import check_kernel_output
 from .cuda_lib import KernelLibrary
 from .sn import power_iteration
 
@@ -210,6 +211,7 @@ def launch(weights: Sequence[torch.Tensor], us: Sequence[torch.Tensor],
             u_out.data_ptr(), v_out.data_ptr(), int(write_u), stream)
     library.check(err, "power-iteration kernel")
     launches += 1
+    check_kernel_output("power-iteration kernel", sigma, u_out, v_out)
     return sigma, u_out, v_out
 
 

@@ -1,3 +1,14 @@
-from .prefetch import prefetch_to_device
+"""Multi-device training (port of ``gan_lib_tensorflow_tpu/parallel``):
+the mesh over the process group, the sharding rules and host -> device
+prefetch."""
 
-__all__ = ["prefetch_to_device"]
+from .mesh import (Mesh, active, barrier, create_mesh, init_distributed, is_writer,
+                   sharded_step)
+from .prefetch import prefetch_to_device
+from .sharding import (ModelShards, data_rows, global_batch, local_rows, shard_batch,
+                       sum_over_data, tensor_parallel_spec, train_state_shardings)
+
+__all__ = ["Mesh", "ModelShards", "active", "barrier", "create_mesh", "data_rows",
+           "global_batch", "init_distributed", "is_writer", "local_rows",
+           "prefetch_to_device", "shard_batch", "sharded_step", "sum_over_data",
+           "tensor_parallel_spec", "train_state_shardings"]

@@ -1,5 +1,7 @@
 """Host -> device prefetch (port of ``gan_lib_tensorflow_tpu/parallel/
-prefetch.py:20-74``, one device, no mesh).
+prefetch.py:20-74``). On a mesh each rank copies only its rows of the
+global batch (``rows``, dim 1 of the ``[n_micro, B, ...]`` stacks), as the
+reference's ``shard_batch`` puts each row on its own device.
 
 Each host batch is copied into pinned memory and then to the card with
 ``non_blocking=True`` on a side stream, ``depth`` batches in flight; the
@@ -13,7 +15,7 @@ left as they are.
 from __future__ import annotations
 
 import collections
-from typing import Any, Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -28,11 +30,15 @@ def _finish(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def prefetch_to_device(it: Iterator[Dict[str, np.ndarray]], device="cuda",
-                       depth: int = 2) -> Iterator[Dict[str, torch.Tensor]]:
+                       depth: int = 2, rows: Optional[slice] = None
+                       ) -> Iterator[Dict[str, torch.Tensor]]:
     """Yield the batches of ``it`` (dicts of numpy arrays) as tensors on
-    ``device``, uint8 leaves normalized there. On the CPU the arrays are
-    wrapped, not copied, and normalized in place of the copy."""
+    ``device``, uint8 leaves normalized there; with ``rows``, only those
+    rows of dim 1. On the CPU the arrays are wrapped, not copied, and
+    normalized in place of the copy."""
     dev = resolve_device(device)
+    if rows is not None:
+        it = ({k: v[:, rows] for k, v in batch.items()} for batch in it)
     if dev.type != "cuda":
         for batch in it:
             yield _finish({k: torch.from_numpy(np.ascontiguousarray(v))

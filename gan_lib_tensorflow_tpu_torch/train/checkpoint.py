@@ -10,6 +10,10 @@ checkpoint as the latest. Older files beyond ``max_to_keep`` are removed
 only after a write has succeeded. Files hold only CPU tensors, numbers,
 strings, lists and dicts: they load under ``torch.load(weights_only=True)``
 in any process, a CPU-only one included, whatever device wrote them.
+
+On a mesh every rank calls ``save`` (the state is gathered to the one-rank
+format first, a collective under 'model' sharding) and only rank 0 writes;
+every rank restores from the same file.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import Any, List, Optional
 
 import torch
 
+from ..parallel.mesh import is_writer
 from .state import GANTrainState, load_checkpoint, to_checkpoint
 
 _FILE = re.compile(r"^step_(\d+)\.pt$")
@@ -55,7 +60,9 @@ class CheckpointManager:
 
     def save_payload(self, step: int, payload: dict, wait: bool = False) -> None:
         """``save`` of any dict of tensors, numbers, strings, lists and dicts
-        (an export bundle's generator payload)."""
+        (an export bundle's generator payload); only rank 0 writes."""
+        if not is_writer():
+            return
         payload = _to_host(payload)
         self.wait()
         self._pending = self._writer.submit(self._write, step, payload)

@@ -3,20 +3,32 @@ auto-resume, steps, the NaN guard, the fade-in schedule, fault injection,
 and the periodic log, sample, eval and checkpoint, in the reference's order.
 A source with ``yields_stacks`` (on-device sources) is iterated as it is;
 any other (host numpy batches) is stacked into ``[n_micro, B, ...]`` and
-copied to the card by ``prefetch_to_device``. Profiler capture, curves and
-TensorBoard are not ported."""
+copied to the card by ``prefetch_to_device``. ``trace_steps`` captures a
+``torch.profiler`` trace (``utils/profiler.py``). Curves and TensorBoard are
+not ported.
+
+On a mesh (``state.mesh``) every rank steps on its rows of each batch;
+rank 0 logs, draws the sample grids and writes the checkpoints (every rank
+takes part in gathering them), every rank resumes from the same checkpoint
+and runs its share of an eval, and a barrier closes the run."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import os
 import time
 from typing import Any, Callable, Dict, Iterable, Iterator, Optional
 
+import torch
+
 from ..data.base import microbatch_stack
-from ..parallel import prefetch_to_device
+from ..parallel import barrier, data_rows, is_writer, prefetch_to_device
+from ..utils import profiler
 from ..utils.logging import ScalarLogger
 from .checkpoint import CheckpointManager
+from .state import gathered
 
 
 @dataclasses.dataclass
@@ -28,6 +40,10 @@ class LoopConfig:
     eval_every: int = 0              # 0 = no periodic eval
     out_dir: Optional[str] = None
     fault_inject_step: int = 0       # raise after this step (resume testing)
+    # trace this many steps with torch.profiler, from the 10th step of the
+    # run; as in the reference (loop.py:160-170, 196-198) the window ends
+    # after step start + 10 + trace_steps, so it holds trace_steps + 1 steps
+    trace_steps: int = 0             # written under <out_dir>/trace
 
 
 # Faults worth retrying in an eval or sample pause: the reference's backend
@@ -94,13 +110,19 @@ def _run_aux(label: str, fn: Callable[[], Any],
             time.sleep(_AUX_BACKOFF_S)
 
 
-def device_batches(source: Iterable, n_micro: int, device) -> Iterator:
+def device_batches(source: Iterable, n_micro: int, device, mesh=None) -> Iterator:
     """The loop's batches on ``device``: an on-device source's own stacks,
     or a host source's batches stacked by ``n_micro`` and prefetched
-    (reference ``train/loop.py:143-153``)."""
+    (reference ``train/loop.py:143-153``). On a ``mesh`` an on-device
+    source must have been made for it (it yields the rank's rows), and a
+    host source's global batches are cut to the rank's rows before the copy."""
     if getattr(source, "yields_stacks", False):
+        if getattr(source, "mesh", None) is not mesh:
+            raise ValueError(f"{type(source).__name__} was not made for this mesh: "
+                             "pass it mesh=")
         return iter(source)
-    return prefetch_to_device(microbatch_stack(source, n_micro), device)
+    rows = None if mesh is None else data_rows(source.batch_size, mesh)
+    return prefetch_to_device(microbatch_stack(source, n_micro), device, rows=rows)
 
 
 def train_loop(state, step_fn: Callable, source: Iterable, config: LoopConfig,
@@ -122,19 +144,30 @@ def train_loop(state, step_fn: Callable, source: Iterable, config: LoopConfig,
     the last step. Pending checkpoint writes are waited for on the way out,
     an exception's way included. ``n_micro`` is the stack depth a host
     source's batches are grouped into (the spec's n_critic)."""
-    logger = logger or ScalarLogger(config.out_dir)
-    if ckpt is not None and ckpt.restore_latest(state) is not None:
+    writer = is_writer()
+    logger = logger or ScalarLogger(config.out_dir if writer else None)
+    if ckpt is not None and ckpt.restore_latest(state) is not None and writer:
         print(f"resumed from step {state.step}", flush=True)
     start_step = state.step
     if hasattr(source, "set_stream_position"):
         source.set_stream_position(start_step)  # one batch per step
-    batches = device_batches(source, n_micro, next(state.g.parameters()).device)
+    device = next(state.g.parameters()).device
+    batches = device_batches(source, n_micro, device, state.mesh)
     aux_skips: dict = {}
+    trace = None
+    trace_dir = os.path.join(config.out_dir or ".", "trace")
     try:
         for step in range(start_step, config.total_steps):
+            if config.trace_steps and step == start_step + 10:
+                trace = profiler.start_trace()
             if alpha_fn is not None:
                 state.alpha = float(alpha_fn(step))
-            metrics = step_fn(state, next(batches))
+            with (torch.profiler.record_function(f"train_step {step + 1}")
+                  if trace is not None else contextlib.nullcontext()):
+                metrics = step_fn(state, next(batches))
+            if trace is not None and step == start_step + 10 + config.trace_steps:
+                profiler.stop_trace(trace, trace_dir, device)
+                trace = None
             if config.fault_inject_step and step + 1 == config.fault_inject_step:
                 raise RuntimeError(f"fault injected at step {step + 1}")
             it = step + 1
@@ -143,22 +176,29 @@ def train_loop(state, step_fn: Callable, source: Iterable, config: LoopConfig,
                 host = {k: float(v) for k, v in metrics.items()}
                 if not all(math.isfinite(v) for v in host.values()):
                     raise FloatingPointError(f"non-finite metrics at step {it}: {host}")
-                logger.log(it, host)
-                logger.flush(it)
-                if log_fn is not None:
-                    log_fn(it, host)
+                if writer:
+                    logger.log(it, host)
+                    logger.flush(it)
+                    if log_fn is not None:
+                        log_fn(it, host)
             if sample_fn is not None and (it % config.sample_every == 0 or last):
-                _run_aux(f"sample@{it}", lambda: sample_fn(state, it),
-                         skip_counts=aux_skips, logger=logger, step=it)
+                view = gathered(state)
+                if writer:
+                    _run_aux(f"sample@{it}", lambda: sample_fn(view, it),
+                             skip_counts=aux_skips, logger=logger, step=it)
             if eval_fn is not None and config.eval_every and (
                     it % config.eval_every == 0 or last):
-                scores = _run_aux(f"eval@{it}", lambda: eval_fn(state, it),
+                view = gathered(state)
+                scores = _run_aux(f"eval@{it}", lambda: eval_fn(view, it),
                                   skip_counts=aux_skips, logger=logger, step=it)
-                if scores is not None:
+                if scores is not None and writer:
                     logger.flush(it, extra=scores)
             if ckpt is not None and (it % config.checkpoint_every == 0 or last):
                 ckpt.save(it, state)
     finally:
+        if trace is not None:  # the window outlived the loop: keep what it caught
+            profiler.stop_trace(trace, trace_dir, device)
         if ckpt is not None:
             ckpt.wait()
+    barrier()
     return state

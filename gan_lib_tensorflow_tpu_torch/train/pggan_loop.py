@@ -1,6 +1,6 @@
 """PGGAN progressive-growing ladder (port of ``gan_lib_tensorflow_tpu/train/
-pggan_loop.py:32-178``, with its remat, without its spatial sharding and
-s2d).
+pggan_loop.py:32-178``, with its remat and its data-parallel mesh, without
+its spatial sharding and s2d).
 
 For each level from ``start_resolution`` to ``final_resolution``: a
 transition phase (alpha rises linearly to 1 over the phase) and then a
@@ -18,11 +18,12 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Callable, Dict, Iterable, Iterator, Optional
+from typing import Any, Callable, Dict, Iterable, Iterator, Optional
 
 import torch
 
 from ..models import pggan
+from ..parallel import is_writer
 from ..utils import save_image_grid
 from .checkpoint import CheckpointManager
 from .loop import LoopConfig, train_loop
@@ -61,6 +62,10 @@ class LadderConfig:
     # (0 = never): activation memory for recompute, the same function
     remat_from_resolution: int = 0
     device: str = "cuda"
+    # the data-parallel mesh every phase trains on (None: one process)
+    mesh: Optional[Any] = None
+    # torch.profiler trace of this many (+ 1) steps from each phase's 10th
+    trace_steps: int = 0
 
 
 def resolutions(cfg: LadderConfig) -> Iterator[int]:
@@ -100,7 +105,7 @@ def build_phase(cfg: LadderConfig, res: int, phase: str,
     state = create_state(g, d, lr=cfg.lr, beta1=cfg.beta1, beta2=cfg.beta2,
                          ema_decay=cfg.ema_decay,
                          seed=cfg.seed + res + (0 if fade else 1),
-                         device=cfg.device)
+                         device=cfg.device, mesh=cfg.mesh)
     if prev is not None:
         g_copied = pggan.migrate_params(dict(prev.g.named_parameters()),
                                         dict(g.named_parameters()))
@@ -108,8 +113,9 @@ def build_phase(cfg: LadderConfig, res: int, phase: str,
                                         dict(d.named_parameters()))
         if prev.ema_params is not None and state.ema_params is not None:
             pggan.migrate_params(prev.ema_params, state.ema_params)
-        print(f"[pggan] {res}x{res} {phase}: migrated "
-              f"{g_copied} G + {d_copied} D tensors", flush=True)
+        if is_writer():
+            print(f"[pggan] {res}x{res} {phase}: migrated "
+                  f"{g_copied} G + {d_copied} D tensors", flush=True)
     batch = cfg.batch_by_res[res]
     steps = cfg.steps_per_phase or max(cfg.images_per_phase // batch, 1)
     alpha_fn = ((lambda i, s=steps: min((i % s + 1) / s, 1.0))
@@ -125,7 +131,8 @@ def train_pggan_ladder(
 ) -> GANTrainState:
     """Run the whole ladder; returns the last phase's state.
     ``source_factory(resolution, batch)`` yields ``{"image": [1, B, res, res,
-    3]}`` stacks of reals. ``phase_hook(when, res, phase, state)`` is called
+    3]}`` stacks of reals (on ``cfg.mesh``: a source made for it, or a host
+    source of global batches). ``phase_hook(when, res, phase, state)`` is called
     with ``when='start'`` after migration, before the phase's first step, and
     with ``when='end'`` after its last."""
     prev: Optional[GANTrainState] = None
@@ -140,7 +147,7 @@ def train_pggan_ladder(
             loop_cfg = LoopConfig(total_steps=ph.steps, log_every=cfg.log_every,
                                   sample_every=cfg.sample_every,
                                   checkpoint_every=cfg.checkpoint_every,
-                                  out_dir=phase_dir)
+                                  out_dir=phase_dir, trace_steps=cfg.trace_steps)
             ckpt = (CheckpointManager(os.path.join(phase_dir, "ckpt"))
                     if phase_dir else None)
             try:

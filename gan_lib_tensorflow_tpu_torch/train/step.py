@@ -6,6 +6,18 @@ One call runs: all n_critic fake microbatches (one G forward under
 after the critic loop, then the EMA of G's parameters. Unlike the reference's
 pure function, the step updates the state in place (parameters, Adam slots,
 ``u`` buffers, BN running stats), which saves a copy of every tensor.
+
+On a mesh (``state.mesh``, one process per rank) the step computes the
+one-rank step's function of the global batch, as the reference's GSPMD step
+does: the batch holds the rank's rows, every draw is made at the global
+batch from generators seeded alike on every rank and sliced, batch
+statistics are global (``ops/norms.py``), and each update averages its
+gradients over 'data' in one flat all-reduce before the optimizer step (the
+reference's psum; no DDP, whose reducer cannot take the gradient penalty's
+double backward nor ``torch.autograd.grad``). Under 'model' sharding the
+optimizer and EMA hold the rank's shards (``parallel.ModelShards``): the
+full gradient is sliced to the shard, and the updated shards are gathered
+back into the network's weights.
 """
 
 from __future__ import annotations
@@ -14,6 +26,9 @@ import dataclasses
 from typing import Callable, Dict, Optional, Sequence
 
 import torch
+
+from ..parallel.mesh import sharded_step
+from ..parallel.sharding import average, global_batch, local_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,8 +88,26 @@ def make_train_step(spec: GANSpec):
         for p, g in zip(params, grads):
             p.grad = g
         opt.step()
+        for p in params:  # a shard's gradient is a view of the full one: free it
+            p.grad = None
         if sched is not None:
             sched.step()
+
+    def _update(state, net: str, loss: torch.Tensor) -> None:
+        """One optimizer update of ``net`` ('g' or 'd') from ``loss``: the
+        rank's gradients (its 'model' shards of the wide ones) averaged over
+        'data', the update on what the rank holds, the shards gathered back
+        into the network."""
+        module, shards = getattr(state, net), getattr(state, f"{net}_shards")
+        params = list(module.parameters())
+        grads = torch.autograd.grad(loss, params)
+        if shards is not None:
+            grads, params = shards.shard_grads(grads), shards.opt_params()
+        if state.mesh is not None:
+            grads = average(grads, state.mesh.group("data"))
+        _apply(params, grads, getattr(state, f"{net}_opt"), getattr(state, f"{net}_sched"))
+        if shards is not None:
+            shards.gather()
 
     def train_step(state, batch, z_critic: Optional[torch.Tensor] = None,
                    z_g: Optional[torch.Tensor] = None,
@@ -83,6 +116,12 @@ def make_train_step(spec: GANSpec):
                    labels_g: Optional[torch.Tensor] = None,
                    masks_critic: Optional[Sequence] = None,
                    masks_g=None) -> Dict[str, torch.Tensor]:
+        with sharded_step(state.mesh):
+            return _step(state, batch, z_critic, z_g, u_gp, labels_critic, labels_g,
+                         masks_critic, masks_g)
+
+    def _step(state, batch, z_critic, z_g, u_gp, labels_critic, labels_g,
+              masks_critic, masks_g):
         key = "input" if spec.paired else "image"
         images = batch[key]
         if images.shape[0] != spec.n_critic:
@@ -103,26 +142,27 @@ def make_train_step(spec: GANSpec):
             d_call, g_call = _drawn_calls(spec, state, batch, images, z_critic, z_g,
                                           u_gp, labels_critic, labels_g)
 
-        d_params = list(state.d.parameters())
         for i in range(spec.n_critic):
             loss, metrics = d_call(i, None if masks_critic is None else masks_critic[i])
-            _apply(d_params, torch.autograd.grad(loss, d_params),
-                   state.d_opt, state.d_sched)
+            _update(state, "d", loss)
 
-        g_named = list(state.g.named_parameters())
-        g_params = [p for _, p in g_named]
         g_loss, g_metrics = g_call(masks_g)
-        _apply(g_params, torch.autograd.grad(g_loss, g_params),
-               state.g_opt, state.g_sched)
+        _update(state, "g", g_loss)
 
         if spec.ema_decay > 0:
             d_ = spec.ema_decay
-            ema = [state.ema_params[name] for name, _ in g_named]
+            names = [name for name, _ in state.g.named_parameters()]
+            held = (state.g_shards.opt_params() if state.g_shards is not None
+                    else list(state.g.parameters()))
+            ema = [state.ema_params[name] for name in names]
             with torch.no_grad():
                 torch._foreach_mul_(ema, d_)
-                torch._foreach_add_(ema, g_params, alpha=1.0 - d_)
+                torch._foreach_add_(ema, held, alpha=1.0 - d_)
         state.step += 1
-        return {**metrics, **g_metrics, "g_loss": g_loss.detach()}
+        out = {**metrics, **g_metrics, "g_loss": g_loss.detach()}
+        if state.mesh is not None:  # the global batch's means
+            out = dict(zip(out, average(list(out.values()), state.mesh.group("data"))))
+        return out
 
     return train_step
 
@@ -131,8 +171,9 @@ def _drawn_calls(spec: GANSpec, state, batch, images, z_critic, z_g, u_gp,
                  labels_critic, labels_g):
     """The critic and G loss calls of a family that draws z (and classes):
     the critic fakes' draws come from ``d_noise`` now, the G update's from
-    ``g_noise`` when the G loss is called."""
-    n, dev, alpha = images.shape[1], images.device, state.alpha
+    ``g_noise`` when the G loss is called. Every draw, given or made, is of
+    the global batch; the rank keeps its rows."""
+    n, dev, alpha = global_batch(images.shape[1]), images.device, state.alpha
     nc = spec.num_classes
     if z_critic is None:
         z_critic = torch.randn(spec.n_critic, n, spec.z_dim, device=dev,
@@ -140,6 +181,10 @@ def _drawn_calls(spec: GANSpec, state, batch, images, z_critic, z_g, u_gp,
     if nc and labels_critic is None:
         labels_critic = torch.randint(0, nc, (spec.n_critic, n), device=dev,
                                       generator=state.d_noise)
+    z_critic = local_rows(z_critic, dim=1)
+    labels_critic = None if labels_critic is None else local_rows(labels_critic, dim=1)
+    if u_gp is not None:
+        u_gp = local_rows(u_gp, dim=1)
     fakes = spec.prepare_fakes(z_critic, alpha, labels_critic)
 
     def d_call(i, masks):
@@ -153,6 +198,8 @@ def _drawn_calls(spec: GANSpec, state, batch, images, z_critic, z_g, u_gp,
             z = torch.randn(n, spec.z_dim, device=dev, generator=state.g_noise)
         if nc and labels is None:
             labels = torch.randint(0, nc, (n,), device=dev, generator=state.g_noise)
-        return spec.g_loss(z, alpha, labels, state.g_noise, masks)
+        return spec.g_loss(local_rows(z), alpha,
+                           None if labels is None else local_rows(labels),
+                           state.g_noise, masks)
 
     return d_call, g_call

@@ -207,6 +207,21 @@ def test_host_synthetic_choices(choice, style):
     np.testing.assert_array_equal(next(iter(src.source))["image"], want["image"])
 
 
+def test_host_synthetic_source_is_one_ordered_stream_on_a_mesh():
+    """On a mesh every rank cuts its rows from the host renderer's batches,
+    so they come from one worker in a fixed order; without one, two workers
+    render in either order."""
+    args = train_pggan.parse_args(TINY + ["--data", "fake", "--final-resolution", "16"])
+    assert train_pggan.source_factory(args)(8, 4).num_workers == 2
+    make = train_pggan.source_factory(args, mesh=object())
+    runs = []
+    for _ in range(2):
+        it = iter(make(8, 4))
+        runs.append(np.stack([next(it)["image"] for _ in range(6)]))
+    assert make(8, 4).num_workers == 1
+    np.testing.assert_array_equal(runs[0], runs[1])
+
+
 @pytest.mark.parametrize("choice,style", [("device-fake", "blobs"), ("device-rich", "rich")])
 def test_device_synthetic_choices(choice, style):
     args = train_pggan.parse_args(TINY + ["--data", choice])
