@@ -156,11 +156,33 @@ final line):
      ``FloatingPointError`` on a NaN injected into D's SN weight (named by
      the kernel's wrapper) and into G's Dense weight (named by the
      operator); then the fade-in at the shapes one rank of (c) gives it
+ 16. spatial partitioning (the 'sp' axis, ``--sp-shards``) and the
+     space-to-depth top level (``--s2d-from``, default 512), ranks under
+     ``torch.distributed.run`` sharing the card through gloo: (a) the 1024^2
+     transition phase at full width in bf16 (batch 4, the S2D top level)
+     built by ``build_phase`` from ``train_pggan``'s flags, on 2 'sp' ranks
+     (``chip_smoke.py --sp-run``) against one process: step 1's metrics
+     within 5e-2 (relative and absolute), 6 fade-in launches per step on
+     each rank at the half-height shapes, ms/step, and rank 0's host ms per
+     step in halo exchanges, height gathers and 'sp' sums; (b)
+     ``train_pggan --sp-shards 2`` on 4 ranks (DP x SP 2 x 2), the ladder
+     4^2 -> 1024^2 in fp32, 1 step per phase, the default ``--s2d-from 512``,
+     with SGD for Adam (an update linear in the gradient) against the
+     one-process run: every logged metric of the 1024^2 phases within 1e-3
+     relative (1e-4 absolute), 48 fade-in launches per rank (rank 0's 8
+     grids besides); (c) the 1024^2 transition step on one rank with
+     ``--s2d-from 512`` and ``0`` from one state: step 1's metrics within
+     5e-2, ms/step both ways in turns, the step's peak memory both ways; (d)
+     (b)'s 1024^2 stabilize checkpoint restored by a one-process
+     ``cli.sample``: its grid against the 4-rank run's own writer's, within
+     one level of 255 at under 0.1% of the values; then the fade-in at the
+     shapes an 'sp' rank gives it
 
 The power iteration's ``launches`` in the kernels' record are those of
 phase 5's SNGAN run, phase 12's conditional SNGAN run and every run of
 phase 15 (each rank's and the one-rank runs'); the fade-in's are those of
-phase 6's ladder, phase 14's ladder (b) and phase 15's ladders.
+phase 6's ladder, phase 14's ladder (b) and the ladders and steps of phases
+15 and 16 (each rank's and the one-process runs').
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -228,6 +250,14 @@ MR_IMAGENET_BATCH, MR_IMAGENET_STEPS = 16, 3
 MR_TRACE_STEPS = 2                           # (f): a window of 3 steps, 11-13
 # the fade-in's two blends of the 1024^2 transition step at 2 images per rank
 FADEIN_HALF_SHAPES = [(2, 3, 1024, 1024), (2, 32, 512, 512)]
+# spatial partitioning (phase 16): (a) the 1024^2 transition phase on 2 'sp'
+# ranks, step 1 compared with one rank and steps 2-4 timed; (c) S2D against
+# the composed top level on one rank, warm-up then timed steps in turns
+SP_STEPS = 4
+S2D_WARM, S2D_TIMED, S2D_ROUNDS = 2, 3, 2
+# the fade-in's blends on one 'sp' rank of the 1024^2 transition step: half
+# the height at batch 4 ('sp' 2) and at 2 images per 'data' rank (DP x SP 2 x 2)
+FADEIN_SP_SHAPES = [(4, 3, 512, 1024), (4, 32, 256, 512), (2, 3, 512, 1024), (2, 32, 256, 512)]
 
 
 def nvidia_smi(fields: str) -> str:
@@ -1691,15 +1721,17 @@ def rank_run(out: str, module: str, argv: list, sgd: bool = False) -> None:
 
 
 def torchrun(n: int, out: str, module: str, argv: list, timeout: float = 600,
-             sgd: bool = False) -> list:
+             sgd: bool = False, sp_steps: int = 0) -> list:
     """``python -m torch.distributed.run --standalone --nproc_per_node n``
     of ``module``'s ``main(argv)`` through ``rank_run`` (SGD for Adam under
-    ``sgd``); every process it starts is stopped on the way out. Returns
-    the ranks' records."""
+    ``sgd``), or with ``sp_steps`` of ``sp_step_run``'s steps of the PGGAN
+    phase that ``argv`` (``train_pggan``'s flags) gives; every process it
+    starts is stopped on the way out. Returns the ranks' records."""
     import signal
+    run = (["--sp-run", out, str(sp_steps)] if sp_steps
+           else ["--rank-run", *(["--sgd"] if sgd else []), out, module])
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", str(n), os.path.abspath(__file__), "--rank-run",
-           *(["--sgd"] if sgd else []), out, module, *argv]
+           "--nproc_per_node", str(n), os.path.abspath(__file__), *run, *argv]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                             process_group=0)
@@ -2027,6 +2059,288 @@ def multi_rank(card: str, tmp: str, parts: str = "abcdf") -> tuple:
               f"{err:.3e}  [{card}]", flush=True)
         del a, b
     return pi_total, fd_total, half
+
+
+def sp_step_run(out, steps: int, argv: list) -> dict:
+    """``steps`` steps of the ``--final-resolution`` transition phase of
+    ``train_pggan``'s flags ``argv``, built by ``build_phase`` and fed by
+    ``device_batches`` as the ladder builds and feeds it: one rank of a
+    ``torch.distributed.run`` launch (``chip_smoke.py --sp-run OUT STEPS
+    ARGV...``, which writes ``OUT.rank<r>.json``), or the one-process run
+    (``out`` None). Per step: its metrics, host seconds (synchronised) and,
+    on a mesh, the collectives inside it by kind ('halo': the halo
+    exchanges and their adjoints; 'gather': the height gathers and their
+    adjoints; 'sp_sum'; 'other': the gradient and metric averages); the
+    fade-in launches and their shapes, peak memory."""
+    import torch
+    import torch.distributed as dist
+    from gan_lib_tensorflow_tpu_torch.cli import common, train_pggan
+    from gan_lib_tensorflow_tpu_torch.ops import fadein as fd
+    from gan_lib_tensorflow_tpu_torch.train import make_train_step
+    from gan_lib_tensorflow_tpu_torch.train.loop import device_batches
+    from gan_lib_tensorflow_tpu_torch.train.pggan_loop import build_phase
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    args = train_pggan.parse_args(argv)
+    mesh = common.maybe_mesh(args)
+    calls = []
+    if mesh is not None:
+        sp_group = mesh.group("sp")
+
+        def timed(name, fn):
+            def wrapper(*a, **kw):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    tensor = a[1] if name == "all_gather" else a[0]
+                    if name == "all_gather":
+                        kind = "halo" if tensor.dim() == 5 else "gather"
+                    elif kw.get("group") is sp_group and sp_group is not None:
+                        kind = "gather" if tensor.dim() == 4 else "sp_sum"
+                    else:
+                        kind = "other"
+                    calls.append((kind, t, time.perf_counter()))
+            return wrapper
+
+        for name in ("all_reduce", "all_gather"):
+            setattr(dist, name, timed(name, getattr(dist, name)))
+    res = args.final_resolution
+    ph = build_phase(train_pggan.ladder_config(args, mesh), res, "transition")
+    dev = next(ph.state.g.parameters()).device
+    batches = device_batches(train_pggan.source_factory(args, mesh)(res, ph.batch), 1, dev,
+                             mesh)
+    step = make_train_step(ph.spec)
+    shapes = set()
+    launch = fd.launch
+
+    def counted_launch(a, b, alpha):
+        shapes.add(tuple(a.shape))
+        return launch(a, b, alpha)
+
+    fd.launch = counted_launch
+    fd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    per_step = []
+    try:
+        for i in range(steps):
+            ph.state.alpha = ph.alpha_fn(i)
+            torch.cuda.synchronize()
+            n0, t0 = len(calls), time.perf_counter()
+            metrics = {k: float(v) for k, v in step(ph.state, next(batches)).items()}
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            by_kind = {}
+            for kind, cs, ce in calls[n0:]:
+                n, sec = by_kind.get(kind, (0, 0.0))
+                by_kind[kind] = (n + 1, sec + ce - cs)
+            per_step.append({"sec": t1 - t0, "metrics": {"step": i + 1, **metrics},
+                             "collectives": by_kind})
+    finally:
+        fd.launch = launch
+    rec = {"rank": mesh.rank if mesh else 0,
+           "mesh": dict(zip(mesh.axis_names, mesh.shape)) if mesh else None,
+           "fd": fd.launches, "shapes": sorted(shapes), "per_step": per_step,
+           "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+    if out is not None:
+        with open(f"{out}.rank{rec['rank']}.json", "w") as f:
+            json.dump(rec, f)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return rec
+
+
+def read_png(path: str):
+    """The uint8 ``[H, W, C]`` pixels of a PNG that ``utils/images.py``
+    wrote (8-bit, filter type 0 on every row)."""
+    import zlib
+
+    import numpy as np
+    with open(path, "rb") as f:
+        data = f.read()
+    pos, idat, w, h, c = 8, b"", 0, 0, 0
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if tag == b"IHDR":
+            w, h, _, color = struct.unpack(">IIBB", body[:10])
+            c = {0: 1, 2: 3, 6: 4}[color]
+        elif tag == b"IDAT":
+            idat += body
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * c)
+    check(not rows[:, 0].any(), f"{path}: a row with a filter other than 0")
+    return rows[:, 1:].reshape(h, w, c)
+
+
+def spatial_partitioning(card: str, tmp: str) -> tuple:
+    """Phase 16, in the temporary directory ``tmp``. Returns the fade-in
+    launches of its runs (every rank's and the one-process runs') and the
+    fade-in's times at the 'sp' shapes."""
+    import numpy as np
+    import torch
+    from gan_lib_tensorflow_tpu_torch.cli import sample, train_pggan
+    from gan_lib_tensorflow_tpu_torch.ops import fadein as fd
+    from gan_lib_tensorflow_tpu_torch.train import make_train_step
+    from gan_lib_tensorflow_tpu_torch.train.loop import device_batches
+    from gan_lib_tensorflow_tpu_torch.train.pggan_loop import build_phase
+    fd_total = 0
+    torch.cuda.empty_cache()
+    sp_shapes = sorted([list(FADEIN_SP_SHAPES[0]), list(FADEIN_SP_SHAPES[1])])
+
+    # (a) the 1024^2 transition phase, bf16, on 2 'sp' ranks against one process
+    a_argv = ["--data", "device-fake", "--device", "cuda", "--final-resolution", "1024",
+              "--steps-per-phase", str(SP_STEPS), "--compute-dtype", "bf16"]
+    recs = torchrun(2, os.path.join(tmp, "a"), "train_pggan", a_argv + ["--sp-shards", "2"],
+                    sp_steps=SP_STEPS)
+    one = sp_step_run(None, SP_STEPS, a_argv)
+    for rec in recs:
+        check(rec["mesh"] == {"data": 1, "sp": 2}, f"(a) mesh {rec['mesh']}")
+        check(rec["fd"] == 6 * SP_STEPS and rec["shapes"] == sp_shapes,
+              f"(a) rank {rec['rank']}: {rec['fd']} fade-in launches at {rec['shapes']}, want "
+              f"{6 * SP_STEPS} at {sp_shapes}")
+    check(one["fd"] == 6 * SP_STEPS, f"(a) one process: {one['fd']} fade-in launches")
+    fd_total += sum(r["fd"] for r in recs) + one["fd"]
+    # bf16: the shards' convolutions sum in another order than the whole
+    # image's; step 1 starts from one state on one batch with one set of draws
+    a_err = losses_close([recs[0]["per_step"][0]["metrics"]], [one["per_step"][0]["metrics"]],
+                         5e-2, 5e-2, "(a) step 1, 'sp' 2 vs one process")
+    later = max(abs(a[k] - b[k]) for sa, sb in zip(recs[0]["per_step"], one["per_step"])
+                for a, b in [(sa["metrics"], sb["metrics"])] for k in b if k != "step")
+    ms2 = 1e3 * statistics.mean(st["sec"] for st in recs[0]["per_step"][1:])
+    ms1 = 1e3 * statistics.mean(st["sec"] for st in one["per_step"][1:])
+    kinds = {}
+    for st in recs[0]["per_step"][1:]:
+        for kind, (n, sec) in st["collectives"].items():
+            tot = kinds.setdefault(kind, [0, 0.0])
+            tot[0] += n / (SP_STEPS - 1)
+            tot[1] += 1e3 * sec / (SP_STEPS - 1)
+    coll = ", ".join(f"{kind} {n:.0f} calls {ms:.1f} ms" for kind, (n, ms) in sorted(kinds.items()))
+    coll_ms = sum(ms for _, ms in kinds.values())
+    print(f"(a) the 1024x1024 transition phase, full width, bf16, batch 4, S2D top level: 'sp' 2 "
+          f"(gloo, one card) vs one process: step 1's metrics within 5e-2 (largest difference "
+          f"{a_err:.3e}; over steps 1-{SP_STEPS} {later:.3e}: {recs[0]['per_step'][-1]['metrics']} "
+          f"vs {one['per_step'][-1]['metrics']}); fade-in launches per rank "
+          f"{[r['fd'] for r in recs]} at {sp_shapes}; ms/step (steps 2-{SP_STEPS}) 'sp' 2 "
+          f"{ms2:.2f}, one process {ms1:.2f}; rank 0 per step: {coll} ({coll_ms:.1f} ms, "
+          f"{coll_ms / ms2:.3f} of the step); peak per rank "
+          f"{max(r['peak_mib'] for r in recs):.0f} MiB, one process {one['peak_mib']:.0f} MiB  "
+          f"[{card}]", flush=True)
+
+    # (b) the ladder under DP x SP 2 x 2, fp32, the default --s2d-from 512
+    pg = ["--data", "device-fake", "--final-resolution", "1024", "--steps-per-phase", "1",
+          "--log-every", "1", "--compute-dtype", "fp32", "--sample-every", "1000",
+          "--ckpt-every", "1000"]
+    recs = torchrun(4, os.path.join(tmp, "b"), "train_pggan",
+                    pg + ["--sp-shards", "2", "--out-dir", os.path.join(tmp, "b4")], sgd=True)
+    undo = sgd_for_adam()
+    try:
+        fd.launches = 0
+        train_pggan.main(pg + ["--device", "cuda", "--out-dir", os.path.join(tmp, "b1")])
+        torch.cuda.synchronize()
+        one_fd = fd.launches
+    finally:
+        undo()
+    for rec in recs:
+        want = 48 + (8 if rec["rank"] == 0 else 0)
+        check(rec["mesh"] == {"data": 2, "sp": 2} and rec["fd"] == want,
+              f"(b) rank {rec['rank']} on {rec['mesh']}: {rec['fd']} fade-in launches, want {want}")
+    check(one_fd == 56, f"(b) one process: {one_fd} fade-in launches, want 56")
+    fd_total += sum(r["fd"] for r in recs) + one_fd
+    b_err = 0.0
+    for phase_dir in ("1024x1024_transition", "1024x1024_stabilize"):
+        l4, l1 = (read_log(os.path.join(tmp, c, phase_dir)) for c in ("b4", "b1"))
+        b_err = max(b_err, losses_close(l4, l1, 1e-3, 1e-4, f"(b) {phase_dir}"))
+    print(f"(b) train_pggan --sp-shards 2 on 4 ranks (DP x SP 2 x 2, gloo, one card), the ladder "
+          f"4x4 -> 1024x1024 in fp32, 1 step per phase, --s2d-from 512, SGD for Adam: the 1024x1024 "
+          f"phases' metrics within 1e-3 of one process (largest difference {b_err:.3e}: "
+          f"{l4[-1]} vs {l1[-1]}); fade-in launches per rank {[r['fd'] for r in recs]} (6 per "
+          f"transition step, and rank 0's 8 grids); ladder {max(r['seconds'] for r in recs):.1f} s "
+          f"on 4 ranks; peak per rank {max(r['peak_mib'] for r in recs):.0f} MiB  [{card}]",
+          flush=True)
+
+    # (d) (b)'s checkpoint, written under 'sp' 2, sampled by one process
+    top = os.path.join(tmp, "b4", "1024x1024_stabilize")
+    png = os.path.join(tmp, "d.png")
+    sample.main(["--model", "pggan", "--resolution", "1024", "--ckpt-dir",
+                 os.path.join(top, "ckpt"), "--n", "16", "--seed", "99", "--out", png,
+                 "--device", "cuda"])
+    mine, theirs = read_png(png), read_png(os.path.join(top, "sample_000001.png"))
+    check(mine.shape == theirs.shape, f"(d) grids {mine.shape} and {theirs.shape}")
+    diff = np.abs(mine.astype(np.int16) - theirs.astype(np.int16))
+    n_off = int((diff > 0).sum())
+    check(int(diff.max()) <= 1 and n_off <= 1e-3 * diff.size,
+          f"(d) the one-process grid is {int(diff.max())} levels from the writer's at {n_off} values")
+    print(f"(d) the 'sp' 2 run's 1024x1024 stabilize checkpoint restored by one-process "
+          f"cli.sample (16 samples, the writer's z): its grid {mine.shape} against the writer's "
+          f"own: largest difference {int(diff.max())} level(s) of 255 at {n_off} of {diff.size} "
+          f"values (the writer's G has the S2D top level, cli.sample's the composed one)",
+          flush=True)
+
+    # (c) S2D against the composed top level on one rank, bf16, from one state
+    runs = {}
+    for s2d_from in (512, 0):
+        args = train_pggan.parse_args(["--data", "device-fake", "--device", "cuda",
+                                       "--final-resolution", "1024", "--compute-dtype", "bf16",
+                                       "--s2d-from", str(s2d_from)])
+        ph = build_phase(train_pggan.ladder_config(args), 1024, "transition")
+        ph.state.alpha = 0.5
+        batches = device_batches(train_pggan.source_factory(args)(1024, ph.batch), 1, "cuda")
+        runs[s2d_from] = {"ph": ph, "batches": batches, "step": make_train_step(ph.spec),
+                          "ms": []}
+    fd.launches = 0
+    for s2d_from, run in runs.items():  # step 1 from one state, then the peak of step 2
+        run["first"] = {k: float(v) for k, v in run["step"](run["ph"].state,
+                                                              next(run["batches"])).items()}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run["step"](run["ph"].state, next(run["batches"]))
+        torch.cuda.synchronize()
+        run["peak"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        for _ in range(S2D_WARM - 1):
+            run["step"](run["ph"].state, next(run["batches"]))
+    for _ in range(S2D_ROUNDS):  # in turns, so that the card's clocks treat both alike
+        for run in runs.values():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(S2D_TIMED):
+                run["step"](run["ph"].state, next(run["batches"]))
+            torch.cuda.synchronize()
+            run["ms"].append(1e3 * (time.perf_counter() - t0) / S2D_TIMED)
+    n_steps = 1 + S2D_WARM + S2D_ROUNDS * S2D_TIMED
+    check(fd.launches == 2 * 6 * n_steps, f"(c) {fd.launches} fade-in launches")
+    fd_total += fd.launches
+    c_err = losses_close([{"step": 1, **runs[512]["first"]}], [{"step": 1, **runs[0]["first"]}],
+                         5e-2, 5e-2, "(c) S2D vs composed, step 1")
+    print(f"(c) the 1024x1024 transition step, full width, bf16, batch 4, one rank: --s2d-from "
+          f"512 vs 0 from one state: step 1's metrics within 5e-2 (largest difference "
+          f"{c_err:.3e}: {runs[512]['first']} vs {runs[0]['first']}); ms/step (rounds of "
+          f"{S2D_TIMED} in turns) S2D {[round(m, 2) for m in runs[512]['ms']]}, composed "
+          f"{[round(m, 2) for m in runs[0]['ms']]}; the step's peak above its resident state "
+          f"S2D {runs[512]['peak']:.0f} MiB, composed {runs[0]['peak']:.0f} MiB  [{card}]",
+          flush=True)
+    del runs
+
+    # the fade-in at the shapes one 'sp' rank gives it
+    cl = torch.channels_last
+    times = {}
+    for shape in FADEIN_SP_SHAPES:
+        a = torch.randn(shape, device="cuda").contiguous(memory_format=cl)
+        b = torch.randn(shape, device="cuda").contiguous(memory_format=cl)
+        t = timed_in_turns({"kernel": lambda: fd.launch(a, b, 0.37),
+                            "lerp": lambda: torch.lerp(b, a, 0.37),
+                            "plain": lambda: fd.plain_fadein_blend(a, b, 0.37)}, 20)
+        err = float((fd.launch(a, b, 0.37) - fd.plain_fadein_blend(a, b, 0.37)).abs().max())
+        check(err <= 1e-6, f"fade-in at {list(shape)}: {err:.3e} from its plain version")
+        bound = 1e3 * 12 * a.numel() / PEAK_BYTES_PER_S
+        times[tuple(shape)] = t
+        print(f"fadein_blend {list(shape)} channels-last (one 'sp' rank): kernel "
+              f"{1e3 * t['kernel']:.2f} us, plain {1e3 * t['plain']:.2f} us, torch.lerp "
+              f"{1e3 * t['lerp']:.2f} us, bound {1e3 * bound:.2f} us, max abs err "
+              f"{err:.3e}  [{card}]", flush=True)
+        del a, b
+    return fd_total, times
 
 
 def main() -> None:
@@ -2377,6 +2691,15 @@ def main() -> None:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 15: {time.perf_counter() - t15:.1f} s  [{card}]")
 
+    phase("16 spatial partitioning and the space-to-depth top level ('sp' ranks on this card)")
+    t16 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        sp_fd, _ = spatial_partitioning(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 16: {time.perf_counter() - t16:.1f} s  [{card}]")
+
     print(json.dumps({"kernels": [{
         "name": "batched_power_iteration",
         "route": "cuda",
@@ -2394,7 +2717,7 @@ def main() -> None:
         "route": "cuda",
         "source": "gan_lib_tensorflow_tpu_torch/csrc/fadein_blend.cu",
         "replaces": "gan_lib_tensorflow_tpu/ops/pallas_kernels.py:122",
-        "launches": ladder_launches + pyramid_launches + mr_fd,
+        "launches": ladder_launches + pyramid_launches + mr_fd + sp_fd,
         "max_abs_err": fade_err,
         "ms": fade["ms"],
         "plain_ms": fade["plain_ms"],
@@ -2407,7 +2730,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--rank-run"]:
+    if sys.argv[1:2] == ["--sp-run"]:
+        sp_step_run(sys.argv[2], int(sys.argv[3]), sys.argv[4:])
+    elif sys.argv[1:2] == ["--rank-run"]:
         sgd = sys.argv[2:3] == ["--sgd"]
         rest = sys.argv[3:] if sgd else sys.argv[2:]
         rank_run(rest[0], rest[1], rest[2:], sgd=sgd)

@@ -75,16 +75,24 @@ def configure(args) -> None:
 
 def maybe_mesh(args) -> Optional[Mesh]:
     """The mesh the flags and the launcher ask for, or None for one process
-    (reference ``cli/common.py:115-129``): ``('data',)`` over every rank, or
-    ``(world / tp, tp)`` over ``('data', 'model')`` with ``--tp-shards``.
-    A process that ``torchrun`` started gets a mesh even alone (a one-rank
-    group). ``args.device`` becomes the rank's device."""
+    (reference ``cli/common.py:115-129``): ``('data',)`` over every rank,
+    ``(world / tp, tp)`` over ``('data', 'model')`` with ``--tp-shards``, or
+    ``(world / sp, sp)`` over ``('data', 'sp')`` with PGGAN's
+    ``--sp-shards`` (reference ``cli/train_pggan.py:93-98``). A process that
+    ``torchrun`` started gets a mesh even alone (a one-rank group).
+    ``args.device`` becomes the rank's device."""
     tp = getattr(args, "tp_shards", 1)
+    sp = getattr(args, "sp_shards", 1)
     world = (dist.get_world_size() if dist.is_initialized()
              else int(os.environ.get("WORLD_SIZE", 1)))
     if args.no_mesh and tp > 1:
         raise SystemExit("--no-mesh and --tp-shards > 1 conflict: tensor "
                          "parallelism needs the device mesh")
+    if args.no_mesh and sp > 1:
+        raise SystemExit("--no-mesh and --sp-shards > 1 conflict: spatial "
+                         "partitioning needs the device mesh")
+    if world % sp:
+        raise ValueError(f"--sp-shards {sp} must divide the world size {world}")
     if args.no_mesh:
         if world > 1:
             print(f"--no-mesh trains on one device, but {world} ranks were "
@@ -95,8 +103,12 @@ def maybe_mesh(args) -> Optional[Mesh]:
         raise ValueError(f"--tp-shards {tp} does not divide the world size {world}")
     if "RANK" not in os.environ and not dist.is_initialized():
         return None
-    mesh = (create_mesh((world // tp, tp), ("data", "model"), device=args.device)
-            if tp > 1 else create_mesh(device=args.device))
+    if sp > 1:
+        mesh = create_mesh((world // sp, sp), ("data", "sp"), device=args.device)
+    elif tp > 1:
+        mesh = create_mesh((world // tp, tp), ("data", "model"), device=args.device)
+    else:
+        mesh = create_mesh(device=args.device)
     args.device = str(mesh.device)
     return mesh
 

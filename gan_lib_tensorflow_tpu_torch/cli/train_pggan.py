@@ -1,7 +1,9 @@
 """PGGAN entry point: the progressive ladder 4x4 -> --final-resolution (port
 of ``gan_lib_tensorflow_tpu/cli/train_pggan.py``; WGAN-GP + drift,
 Adam(1e-3, 0, 0.99), G EMA 0.999, a transition (fade-in) and a stabilize
-phase per level, fused_scale D blocks from 128x128).
+phase per level, fused_scale D blocks from 128x128, each stage's top level
+on the space-to-depth grid from 512x512: --s2d-from 512, the reference's
+default).
 
 --data, each phase's reals at its own resolution (reference ``:103-155``):
 'auto'/'fake' (one-class blobs rendered on the host, the reference's numpy
@@ -20,6 +22,9 @@ Usage: python -m gan_lib_tensorflow_tpu_torch.cli.train_pggan --data <pyramid> \
            --steps-per-phase 2
        torchrun --nproc_per_node 2 -m gan_lib_tensorflow_tpu_torch.cli.train_pggan \
            --data device-fake (data parallel: each rank trains on its rows)
+       torchrun --nproc_per_node 4 -m gan_lib_tensorflow_tpu_torch.cli.train_pggan \
+           --data device-fake --sp-shards 2 (DP x SP 2 x 2: each 'sp' rank holds
+           half the height of every level from 8 * 2 rows up)
 (one directory per phase under --out-dir: checkpoints, sample grids, log.jsonl;
 a re-run with the same --out-dir resumes every phase)
 """
@@ -30,6 +35,7 @@ import os
 import sys
 
 from .. import data
+from ..parallel.sharding import spatial_axis_of
 from ..train.pggan_loop import LadderConfig, train_pggan_ladder
 from . import common
 
@@ -63,12 +69,20 @@ def parse_args(argv=None):
                    help="rematerialize the G and D level blocks at resolutions "
                         ">= this (0=off): less activation memory, the same "
                         "function and parameters")
+    p.add_argument("--s2d-from", type=int, default=512,
+                   help="compute each ladder stage's own top level on the "
+                        "space-to-depth grid when it is at or above this "
+                        "resolution (ops/s2d.py): the same function as the "
+                        "fused_scale levels and the same parameters. 0=off")
     p.add_argument("--fused-from", type=int, default=128,
                    help="fused conv+downscale D blocks (Karras fused_scale) "
                         "at resolutions >= this (0=off)")
     p.add_argument("--sp-shards", type=int, default=1,
-                   help="spatial ('sp' axis) shards of the image height; only 1 "
-                        "is supported in this package so far")
+                   help="spatial partitioning: shard the image height over this "
+                        "many ranks (the 'sp' axis; the ranks split as data = "
+                        "world / sp, sp). A power of two with --final-resolution "
+                        ">= 4 * sp: a level of H >= 4 * sp rows holds H / sp rows "
+                        "per rank, and the smaller ones stay whole")
     p.add_argument("--batch-by-res", type=str, default="",
                    help="override entries of the Karras per-resolution batch "
                         "schedule, e.g. '512:16,1024:8'; the generic "
@@ -80,9 +94,14 @@ def parse_args(argv=None):
         # is activations, not parameters
         raise SystemExit("--tp-shards is not supported by the PGGAN ladder; "
                          "use data parallelism (torchrun) instead")
-    if args.sp_shards != 1:
-        raise SystemExit(f"--sp-shards {args.sp_shards}: spatial sharding is not "
-                         "ported yet; only --sp-shards 1 runs")
+    sp = args.sp_shards
+    if sp < 1 or sp & (sp - 1) or (sp > 1 and args.final_resolution < 4 * sp):
+        # a sharded level's rows must split into shards of an even number of
+        # rows, each starting on an even row (the pool, the fused downscale
+        # and the space-to-depth grid read pixel pairs)
+        p.error(f"--sp-shards {sp}: a power of two with --final-resolution "
+                f"{args.final_resolution} >= 4 * sp is needed, so that every sharded "
+                "level splits into even shards of 4 rows or more")
     if args.data not in SYNTHETIC:
         common.refuse_image_folder(p, args.data, "--resolutions",
                                    [f"r{args.final_resolution:04d}"])
@@ -99,7 +118,8 @@ def ladder_config(args, mesh=None) -> LadderConfig:
         sample_every=args.sample_every, checkpoint_every=args.ckpt_every,
         steps_per_phase=args.steps_per_phase or None,
         fused_from_resolution=args.fused_from,
-        remat_from_resolution=args.remat_from, device=args.device,
+        remat_from_resolution=args.remat_from, s2d_from_resolution=args.s2d_from,
+        device=args.device,
         mesh=mesh, trace_steps=args.trace_steps)
     cfg.batch_by_res.update(parse_batch_by_res(args.batch_by_res))
     return cfg
@@ -107,13 +127,15 @@ def ladder_config(args, mesh=None) -> LadderConfig:
 
 def source_factory(args, mesh=None):
     """``make(resolution, batch)``: the reals of one phase, as --data says
-    (a device source on ``mesh`` yields the rank's rows)."""
+    (a device source on ``mesh`` yields the rank's rows, and its height rows
+    over an 'sp' axis)."""
+    spatial = spatial_axis_of(mesh)
     if args.data in ("device-fake", "device-rich"):
         def make(res: int, batch: int):
             return data.DeviceFakeImages(
                 batch_size=batch, image_size=res, num_classes=1, seed=args.seed,
                 n_micro=1, style="rich" if args.data == "device-rich" else "blobs",
-                device=args.device, mesh=mesh)
+                device=args.device, mesh=mesh, spatial_axis=spatial)
     elif args.data in SYNTHETIC:
         def make(res: int, batch: int):
             # rendered at the phase's own resolution, not downsampled from
@@ -130,7 +152,7 @@ def source_factory(args, mesh=None):
         def make(res: int, batch: int):
             return data.packed_training_source(
                 data.resolve_pyramid_dir(args.data, res), batch_size=batch, n_micro=1,
-                seed=args.seed, device=args.device, mesh=mesh,
+                seed=args.seed, device=args.device, mesh=mesh, spatial_axis=spatial,
                 **common.device_cache_kwargs(args))
     return make
 

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..parallel.sharding import data_rows
+from ..parallel.sharding import data_rows, height_rows
 from .base import normalize_u8
 from .packed import META_NAME, PackedImageStore, PackedPairedStore, crop_pairs
 from .pipeline import ThreadedSource
@@ -53,7 +53,8 @@ def _fits_cache(path: str, policy: str, budget_bytes: int) -> bool:
 
 def packed_training_source(path: str, batch_size: int, n_micro: int = 1,
                            seed: int = 0, device="cuda", policy: str = "auto",
-                           budget_bytes: int = DEFAULT_CACHE_BYTES, mesh=None):
+                           budget_bytes: int = DEFAULT_CACHE_BYTES, mesh=None,
+                           spatial_axis: Optional[str] = None):
     """The way to feed a packed store to the train loop.
 
     - ``auto``: ``DeviceCachedStore`` when the store fits ``budget_bytes``,
@@ -63,13 +64,14 @@ def packed_training_source(path: str, batch_size: int, n_micro: int = 1,
       budget with a sized error.
     - ``off``: always stream.
 
-    On a ``mesh`` the cache yields the rank's rows; a stream yields global
-    batches, which the train loop cuts to the rank's rows.
+    On a ``mesh`` the cache yields the rank's rows (and with
+    ``spatial_axis`` its height rows); a stream yields global batches, which
+    the train loop cuts the same way.
     """
     if _fits_cache(path, policy, budget_bytes):
         return DeviceCachedStore(path, batch_size=batch_size, n_micro=n_micro,
                                  seed=seed, device=device, max_bytes=budget_bytes,
-                                 mesh=mesh)
+                                 mesh=mesh, spatial_axis=spatial_axis)
     return ThreadedSource(PackedImageStore(path, batch_size=batch_size, seed=seed,
                                            wire_dtype="uint8"),
                           num_workers=1)
@@ -91,7 +93,9 @@ class DeviceCachedStore:
     [n_micro, B] int32}`` batches on ``device``, gathered from a store held
     there. ``yields_stacks``: the loop takes its batches as they are. On a
     ``mesh`` every rank holds the whole store (the reference replicates it),
-    draws the global indices and gathers only its rows."""
+    draws the global indices and gathers only its rows; with
+    ``spatial_axis``, only its height rows of them (reference
+    ``device_cache.py:111-175``)."""
 
     yields_stacks = True
 
@@ -100,8 +104,9 @@ class DeviceCachedStore:
                  max_bytes: Optional[int] = None,
                  images: Optional[np.ndarray] = None,
                  labels: Optional[np.ndarray] = None, num_classes: int = 0,
-                 mesh=None):
+                 mesh=None, spatial_axis: Optional[str] = None):
         self.mesh, self._rows = mesh, data_rows(batch_size, mesh)
+        self.spatial_axis = spatial_axis
         if path is not None:
             store = PackedImageStore(path, batch_size=batch_size, seed=seed)
             images = np.array(store.images)  # read the memmap's pages once
@@ -135,6 +140,9 @@ class DeviceCachedStore:
         self._steps_per_epoch = self.n // take
         self.device = resolve_device(device)
         self._images = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+        # the rank's height rows of every image (all of them without an 'sp' axis)
+        self._height = (slice(None) if spatial_axis is None
+                        else height_rows(images.shape[1], mesh, spatial_axis))
         self._labels = (None if labels is None else torch.from_numpy(
             np.asarray(labels, np.int32)).to(self.device))
         self._pos = 0
@@ -161,10 +169,10 @@ class DeviceCachedStore:
         return sl.reshape(self.n_micro, self.batch_size).astype(np.int32)
 
     def gather(self, idx: np.ndarray) -> dict:
-        """Images (normalized) and labels of ``idx`` (any shape), on the
-        device."""
+        """Images (normalized; the rank's height rows under ``spatial_axis``)
+        and labels of ``idx`` (any shape), on the device."""
         i = torch.from_numpy(idx.astype(np.int64)).to(self.device)
-        out = {"image": normalize_u8(self._images[i])}
+        out = {"image": normalize_u8(self._images[:, self._height][i])}
         if self._labels is not None:
             out["label"] = self._labels[i]
         return out

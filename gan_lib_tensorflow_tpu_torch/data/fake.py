@@ -24,7 +24,7 @@ resumed run sees the batches an uninterrupted run sees.
 from __future__ import annotations
 
 import hashlib
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -157,17 +157,20 @@ class DeviceFakeImages:
     [n_micro, B] int32}`` on ``device``, forever, in the ``blobs`` or
     ``rich`` style. On a ``mesh`` each rank renders the global batch and
     yields its rows of it, so the ranks' rows make up the one-rank batch bit
-    for bit (``render`` is the global batch)."""
+    for bit (``render`` is the global batch); with ``spatial_axis`` only its
+    height rows of the images over that axis (reference ``fake.py:140-149,
+    177``)."""
 
     yields_stacks = True
 
     def __init__(self, batch_size: int = 64, image_size: int = 32,
                  num_classes: int = 10, seed: int = 0, n_micro: int = 1,
-                 style: str = "blobs", device="cuda", mesh=None):
+                 style: str = "blobs", device="cuda", mesh=None,
+                 spatial_axis: Optional[str] = None):
         _check_style(style)
         dev = resolve_device(device)
         data_rows(batch_size, mesh)  # the global batch must divide over 'data'
-        self.mesh = mesh
+        self.mesh, self.spatial_axis = mesh, spatial_axis
         self.batch_size, self.n_micro, self.num_classes = batch_size, n_micro, num_classes
         self.style = style
         cxy, color, sigma = _class_table(num_classes)
@@ -225,7 +228,8 @@ class DeviceFakeImages:
 
     def __iter__(self):
         while True:
-            yield shard_batch(self.render(), self.mesh, leading_stack_dims=1)
+            yield shard_batch(self.render(), self.mesh, leading_stack_dims=1,
+                              spatial_axis=self.spatial_axis)
 
 
 class FakePairedImages(DataSource):

@@ -1,6 +1,7 @@
 """Multi-rank dry runs on the CPU (port of ``__graft_entry__.py:43-361``'s
-``dryrun_multichip``, ``_dryrun_sharded_eval`` and the ACGAN, ImageNet-128
-and pix2pix DP dry runs), and the launcher they and the tests use.
+``dryrun_multichip``, ``_dryrun_sharded_eval``, the ACGAN, ImageNet-128
+and pix2pix DP dry runs and ``_dryrun_pggan_spatial``), and the launcher
+they and the tests use.
 
 ``launch(target, world, workdir)`` starts ``world`` processes of this
 module, one per rank, joined in a gloo group through a ``FileStore`` under
@@ -13,7 +14,9 @@ is killed.
 shapes over n CPU ranks, through the same code the CLIs run: SNGAN under
 DP, and DP x TP when n is even and at least 4, from a device-cached store
 too; the sharded IS/FID eval; ACGAN, SNGAN-projection 128^2 (one image per
-rank) and pix2pix (batch 1 per rank) under DP. Every metric must be finite.
+rank) and pix2pix (batch 1 per rank) under DP; PGGAN under DP x SP (n/2 x
+2, when n is even) at 32^2 with the fade-in at alpha 0.5 and the top level
+on the space-to-depth grid. Every metric must be finite.
 
 Usage: python -m gan_lib_tensorflow_tpu_torch.dryrun [n_ranks]
 """
@@ -189,6 +192,36 @@ def _dryrun_ranks() -> None:
              "label": torch.from_numpy(rng.integers(0, n_cls, (2, n)).astype(np.int32))}
     _finite("imagenet-dp", make_train_step(spec)(state, shard_batch(batch, dp_mesh, 1)),
             dp_mesh)
+    _dryrun_pggan_spatial(n)
+
+
+def _dryrun_pggan_spatial(n: int) -> None:
+    """The PGGAN WGAN-GP step under DP x SP (reference ``__graft_entry__.py:
+    204-252``): the batch over 'data', the image height over 'sp', the top
+    level at ``s2d_from=res`` as every ladder stage runs it under the CLI's
+    default ``--s2d-from``."""
+    from .models import pggan
+    from .parallel import create_mesh, shard_batch
+    from .train import create_state, make_train_step
+
+    if n % 2:
+        if dist.get_rank() == 0:
+            print("dryrun pggan-spatial skipped (odd rank count)", flush=True)
+        return
+    sp, res = 2, 32
+    mesh = create_mesh((n // sp, sp), ("data", "sp"), device="cpu")
+    g = pggan.PGGANGenerator(resolution=res, fade_in=True, z_dim=16, width_mul=1 / 32,
+                             s2d_from=res)
+    d = pggan.PGGANDiscriminator(resolution=res, fade_in=True, width_mul=1 / 32,
+                                 mbstd_group_size=2, s2d_from=res)
+    spec = pggan.make_pggan_spec(g, d, ema_decay=0.999)
+    state = create_state(g, d, lr=1e-3, beta2=0.99, ema_decay=0.999, device="cpu", mesh=mesh)
+    state.alpha = 0.5
+    rng = np.random.default_rng(0)
+    batch = {"image": torch.from_numpy(rng.standard_normal(
+        (1, 2 * mesh.size("data"), res, res, 3)).astype(np.float32))}
+    _finite("pggan-spatial", make_train_step(spec)(
+        state, shard_batch(batch, mesh, 1, spatial_axis="sp")), mesh)
 
 
 if __name__ == "__main__":

@@ -13,6 +13,13 @@ with the spatially flipped kernel laid out ``[in, out, kh, kw]``, so the port
 hands it ``K`` flipped and transposed, with ``padding = k - 1 - pad_a``: the
 output is exactly ``2H x 2W``. ``conv_transpose_same`` holds that rule for
 any kernel and stride; ``ConvTranspose`` (ACGAN) uses it too.
+
+In an 'sp' height shard (``parallel.sharding.height_shards``) both fused
+convs read one input row of each neighbour (``halo_pad``): the downscale
+pads its height with them instead of zeros, and the upscale computes the
+haloed input's ``2(h + 2)`` output rows and keeps the ``2h`` in the middle
+(its zero halo rows at the image edge are the SAME padding of the whole
+image, so edge and interior shards crop alike).
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.sharding import halo_pad
 
 
 def fuse_up2_kernel(w: torch.Tensor) -> torch.Tensor:
@@ -72,7 +81,10 @@ def upsample2x_conv(x: torch.Tensor, w: torch.Tensor,
     """conv(nearest_up2(x), w, SAME) without the upsampled activation.
 
     x: NCHW, w: OIHW (square, odd k). Output ``[N, O, 2H, 2W]``."""
-    return conv_transpose_same(x, fuse_up2_kernel(w), 2, compute_dtype)
+    h = x.shape[2]
+    x, pad = halo_pad(x, 1)
+    y = conv_transpose_same(x, fuse_up2_kernel(w), 2, compute_dtype)
+    return y if pad else y[:, :, 2:2 + 2 * h]
 
 
 def fuse_down2_kernel(w: torch.Tensor) -> torch.Tensor:
@@ -89,7 +101,8 @@ def conv_downscale2x(x: torch.Tensor, w: torch.Tensor,
     each side reproduces the SAME edges (reference ``fused.py:73-78``)."""
     K = fuse_down2_kernel(w)
     p = (w.shape[-1] - 1) // 2
+    x, ph = halo_pad(x, p)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         K = K.to(compute_dtype)
-    return F.conv2d(x, K, stride=2, padding=p)
+    return F.conv2d(x, K, stride=2, padding=(ph, p) if ph != p else p)

@@ -20,6 +20,13 @@ a unit normal and multiplied at runtime by ``he_scale(fan_in, gain)``, before
 any spectral norm, resize fuse or cast (reference ``layers.py:72-73``).
 fan_in is that of the stored kxk kernel, also for the resize convs, whose
 fused (k+1)x(k+1) kernels are derived from it.
+
+Spatial partitioning (PGGAN's 'sp' axis): inside
+``parallel.sharding.height_shards()`` the activation holds the rank's
+height rows, and a SAME conv takes its padding rows from the 'sp'
+neighbours (``halo_pad``): the stride-1 ``Conv`` one row per side for 3x3,
+the fused ``UpsampleConv`` and ``DownsampleConv`` one input row per side
+(``ops/fused.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import initializers
+from ..parallel.sharding import halo_pad, height_sharded
 from .fused import conv_downscale2x, conv_transpose_same, upsample2x_conv
 from .power_iteration import batched_power_iteration
 
@@ -144,6 +152,12 @@ class Conv(_Layer):
     def forward(self, x, sigma=None, update_sn: bool = False):
         w = self.kernel(sigma, update_sn)
         (top, bottom), (left, right) = self.pads(x.shape[-2], x.shape[-1])
+        if top and height_sharded():
+            if self.stride != 1 or top != bottom:
+                raise NotImplementedError("a height shard takes only stride-1 "
+                                          "symmetric SAME convolutions")
+            x, top = halo_pad(x, top)
+            bottom = top
         x = _cast(x, self.compute_dtype)
         if top == bottom and left == right:
             pad = (top, left)

@@ -128,7 +128,9 @@ def minibatch_stddev(x: torch.Tensor, group_size: int = 4,
     ...]`` group slots, the slot sums are all-reduced, and the centred
     squares take a second pass, as the reference computes the mean first
     and the squares after. Outside one the rank holds every row, and the
-    slot sums are the group sums."""
+    slot sums are the group sums. Its mean over C, H, W needs the whole
+    height: under spatial partitioning PGGAN's D gathers the height before
+    it (``models/pggan.py``), so ``x`` is never an 'sp' shard."""
     n_loc, c, h, w = x.shape
     n = global_batch(n_loc)
     g = min(group_size, n)

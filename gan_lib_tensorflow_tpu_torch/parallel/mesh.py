@@ -2,9 +2,11 @@
 parallel/mesh.py:13-38``).
 
 One process per rank, as ``torchrun`` starts them. A ``Mesh`` lays the
-ranks out row-major over named axes: ``('data',)`` for data parallelism, or
+ranks out row-major over named axes: ``('data',)`` for data parallelism,
 ``('data', 'model')`` for DP x TP, where the ranks of one 'model' group
-hold the shards of the same wide parameters and see the same batch rows.
+hold the shards of the same wide parameters and see the same batch rows, or
+``('data', 'sp')`` for PGGAN's spatial partitioning, where the ranks of one
+'sp' group see the same batch rows and each holds its rows of the height.
 Each axis has one process group per line of the mesh; a rank keeps the
 group of its own line.
 
@@ -12,8 +14,9 @@ group of its own line.
 follows from the devices, with no flag: NCCL when every rank of the host
 has a card of its own, gloo otherwise (ranks that share one card, or the
 CPU). ``sharded_step`` marks the code that runs on a batch sharded over
-'data': inside it batch norm, minibatch stddev and the step's draws take
-the global batch (``parallel/sharding.py``).
+'data' (and the height over 'sp'): inside it batch norm, minibatch stddev
+and the step's draws take the global batch, and ``active()`` gives the
+layers the 'sp' group of their halo exchanges (``parallel/sharding.py``).
 """
 
 from __future__ import annotations

@@ -1,7 +1,9 @@
 """Host -> device prefetch (port of ``gan_lib_tensorflow_tpu/parallel/
 prefetch.py:20-74``). On a mesh each rank copies only its rows of the
 global batch (``rows``, dim 1 of the ``[n_micro, B, ...]`` stacks), as the
-reference's ``shard_batch`` puts each row on its own device.
+reference's ``shard_batch`` puts each row on its own device, and over a
+``spatial_axis`` only its height rows of the image leaves (reference
+``prefetch.py:50-65``).
 
 Each host batch is copied into pinned memory and then to the card with
 ``non_blocking=True`` on a side stream, ``depth`` batches in flight; the
@@ -22,6 +24,7 @@ import torch
 
 from .. import resolve_device
 from ..data.base import normalize_u8
+from .sharding import height_rows
 
 
 def _finish(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -30,15 +33,20 @@ def _finish(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def prefetch_to_device(it: Iterator[Dict[str, np.ndarray]], device="cuda",
-                       depth: int = 2, rows: Optional[slice] = None
+                       depth: int = 2, rows: Optional[slice] = None, mesh=None,
+                       spatial_axis: Optional[str] = None
                        ) -> Iterator[Dict[str, torch.Tensor]]:
     """Yield the batches of ``it`` (dicts of numpy arrays) as tensors on
     ``device``, uint8 leaves normalized there; with ``rows``, only those
-    rows of dim 1. On the CPU the arrays are wrapped, not copied, and
-    normalized in place of the copy."""
+    rows of dim 1; with ``spatial_axis`` (of ``mesh``), only the rank's
+    height rows (dim 2) of the ``[n_micro, B, H, W, C]`` leaves. On the CPU
+    the arrays are wrapped, not copied, and normalized in place of the copy."""
     dev = resolve_device(device)
     if rows is not None:
         it = ({k: v[:, rows] for k, v in batch.items()} for batch in it)
+    if spatial_axis is not None:
+        it = ({k: v[:, :, height_rows(v.shape[2], mesh, spatial_axis)] if v.ndim == 5 else v
+               for k, v in batch.items()} for batch in it)
     if dev.type != "cuda":
         for batch in it:
             yield _finish({k: torch.from_numpy(np.ascontiguousarray(v))

@@ -25,6 +25,7 @@ import torch
 
 from ..data.base import microbatch_stack
 from ..parallel import barrier, data_rows, is_writer, prefetch_to_device
+from ..parallel.sharding import spatial_axis_of
 from ..utils import profiler
 from ..utils.logging import ScalarLogger
 from .checkpoint import CheckpointManager
@@ -113,16 +114,22 @@ def _run_aux(label: str, fn: Callable[[], Any],
 def device_batches(source: Iterable, n_micro: int, device, mesh=None) -> Iterator:
     """The loop's batches on ``device``: an on-device source's own stacks,
     or a host source's batches stacked by ``n_micro`` and prefetched
-    (reference ``train/loop.py:143-153``). On a ``mesh`` an on-device
-    source must have been made for it (it yields the rank's rows), and a
-    host source's global batches are cut to the rank's rows before the copy."""
+    (reference ``train/loop.py:130-154``). On a ``mesh`` an on-device
+    source must have been made for it (it yields the rank's rows, and over
+    an 'sp' axis the rank's height rows), and a host source's global
+    batches are cut to the rank's rows (and height rows) before the copy."""
+    spatial = spatial_axis_of(mesh)
     if getattr(source, "yields_stacks", False):
         if getattr(source, "mesh", None) is not mesh:
             raise ValueError(f"{type(source).__name__} was not made for this mesh: "
                              "pass it mesh=")
+        if getattr(source, "spatial_axis", None) != spatial:
+            raise ValueError(f"{type(source).__name__} was not made for this mesh's "
+                             f"'sp' axis: pass it spatial_axis={spatial!r}")
         return iter(source)
     rows = None if mesh is None else data_rows(source.batch_size, mesh)
-    return prefetch_to_device(microbatch_stack(source, n_micro), device, rows=rows)
+    return prefetch_to_device(microbatch_stack(source, n_micro), device, rows=rows,
+                              mesh=mesh, spatial_axis=spatial)
 
 
 def train_loop(state, step_fn: Callable, source: Iterable, config: LoopConfig,

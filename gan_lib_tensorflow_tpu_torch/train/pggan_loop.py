@@ -1,12 +1,15 @@
 """PGGAN progressive-growing ladder (port of ``gan_lib_tensorflow_tpu/train/
-pggan_loop.py:32-178``, with its remat and its data-parallel mesh, without
-its spatial sharding and s2d).
+pggan_loop.py:32-178``, with its remat, its space-to-depth top level and its
+mesh: 'data', or 'data' x 'sp' for the spatial partitioning of the height).
 
 For each level from ``start_resolution`` to ``final_resolution``: a
 transition phase (alpha rises linearly to 1 over the phase) and then a
 stabilize phase; the first level has only the stabilize phase. Every phase
 builds fresh networks and fresh Adam states (``build_phase``); G, D and the
 EMA take every tensor they share by name and shape with the phase before.
+``s2d_from_resolution``: each stage runs its own top level on the
+space-to-depth grid when that level is at or above it, and only that level
+(the stage's threshold is ``max(s2d_from, res)``, reference ``:105-118``).
 
 With ``out_dir`` set, each phase gets its own directory ``<res>x<res>_<phase>/``
 with a checkpoint manager (``ckpt/``), grids of 16 samples from a fixed z and
@@ -61,8 +64,12 @@ class LadderConfig:
     # rematerialize the G and D level blocks from this resolution upward
     # (0 = never): activation memory for recompute, the same function
     remat_from_resolution: int = 0
+    # each stage's own top level on the space-to-depth grid when it is at or
+    # above this resolution (0 = never): the same function and parameters
+    s2d_from_resolution: int = 0
     device: str = "cuda"
-    # the data-parallel mesh every phase trains on (None: one process)
+    # the mesh every phase trains on (None: one process): ('data',), or
+    # ('data', 'sp') whose 'sp' axis shards the image height
     mesh: Optional[Any] = None
     # torch.profiler trace of this many (+ 1) steps from each phase's 10th
     trace_steps: int = 0
@@ -92,15 +99,16 @@ def build_phase(cfg: LadderConfig, res: int, phase: str,
     """Networks, spec and state of one phase, with G, D and the EMA migrated
     from ``prev`` (the state at the end of the phase before)."""
     fade = phase == "transition"
+    s2d_eff = max(cfg.s2d_from_resolution, res) if cfg.s2d_from_resolution else 0
     g = pggan.PGGANGenerator(resolution=res, fade_in=fade, z_dim=cfg.z_dim,
                              width_mul=cfg.width_mul,
                              remat_from=cfg.remat_from_resolution,
-                             compute_dtype=cfg.compute_dtype)
+                             s2d_from=s2d_eff, compute_dtype=cfg.compute_dtype)
     d = pggan.PGGANDiscriminator(resolution=res, fade_in=fade,
                                  width_mul=cfg.width_mul,
                                  fused_from=cfg.fused_from_resolution,
                                  remat_from=cfg.remat_from_resolution,
-                                 compute_dtype=cfg.compute_dtype)
+                                 s2d_from=s2d_eff, compute_dtype=cfg.compute_dtype)
     spec = pggan.make_pggan_spec(g, d, ema_decay=cfg.ema_decay)
     state = create_state(g, d, lr=cfg.lr, beta1=cfg.beta1, beta2=cfg.beta2,
                          ema_decay=cfg.ema_decay,
@@ -131,8 +139,9 @@ def train_pggan_ladder(
 ) -> GANTrainState:
     """Run the whole ladder; returns the last phase's state.
     ``source_factory(resolution, batch)`` yields ``{"image": [1, B, res, res,
-    3]}`` stacks of reals (on ``cfg.mesh``: a source made for it, or a host
-    source of global batches). ``phase_hook(when, res, phase, state)`` is called
+    3]}`` stacks of reals (on ``cfg.mesh``: a source made for it, which
+    yields the rank's rows and, over 'sp', its height rows; or a host source
+    of global batches). ``phase_hook(when, res, phase, state)`` is called
     with ``when='start'`` after migration, before the phase's first step, and
     with ``when='end'`` after its last."""
     prev: Optional[GANTrainState] = None

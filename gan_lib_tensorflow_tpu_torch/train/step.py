@@ -17,7 +17,11 @@ reference's psum; no DDP, whose reducer cannot take the gradient penalty's
 double backward nor ``torch.autograd.grad``). Under 'model' sharding the
 optimizer and EMA hold the rank's shards (``parallel.ModelShards``): the
 full gradient is sliced to the shard, and the updated shards are gathered
-back into the network's weights.
+back into the network's weights. With an 'sp' axis (PGGAN's spatial
+partitioning) the update averages its gradients over all d * sp ranks in
+the one all-reduce: every rank of an 'sp' line computes the loss whole,
+which counts it sp times (``parallel/sharding.py`` gives the rule); the
+metrics, whole on every rank of a line, average over 'data' only.
 """
 
 from __future__ import annotations
@@ -104,7 +108,9 @@ def make_train_step(spec: GANSpec):
         if shards is not None:
             grads, params = shards.shard_grads(grads), shards.opt_params()
         if state.mesh is not None:
-            grads = average(grads, state.mesh.group("data"))
+            # None: every rank of the mesh, the 'sp' sum with the 'data' mean
+            grads = average(grads, state.mesh.group("data")
+                            if state.mesh.size("sp") == 1 else None)
         _apply(params, grads, getattr(state, f"{net}_opt"), getattr(state, f"{net}_sched"))
         if shards is not None:
             shards.gather()

@@ -4,7 +4,8 @@
 ``--model sngan`` (the default): the fused SNGAN CIFAR-10 step, built through
 the port's CLI ``build`` (batch 64, n_critic 5, bf16, EMA 0.9999, on-device
 fake data). ``--model pggan``: the PGGAN 1024x1024 transition step at full
-width and batch 4 (bf16, fused_scale D blocks from 128), built by the
+width and batch 4 (bf16, fused_scale D blocks from 128, the 1024x1024 level
+on the space-to-depth grid; ``--s2d-from 0``: composed), built by the
 ladder's own ``build_phase`` from the PGGAN CLI's defaults.
 ``--model sngan_imagenet``: the fused SNGAN-projection ImageNet-128 step at
 full width (1000 classes, batch 64, n_critic 5, bf16, EMA 0.9999) built by
@@ -37,7 +38,7 @@ goes (``profile_pggan_eval``): the plain ``cli.evaluate --model pggan`` at
 Usage (on the machine with the card, from the repository root):
     python3 profile_torch_step.py [--model sngan|pggan|sngan_imagenet|acgan|pix2pix]
                                   [--num-classes N] [--data device-fake]
-                                  [--steps 5] [--top 25]
+                                  [--s2d-from 512|0] [--steps 5] [--top 25]
     python3 profile_torch_step.py --model pggan_eval
 """
 
@@ -48,6 +49,7 @@ import collections
 import os
 import subprocess
 import time
+from typing import Optional
 
 WARMUP = 3  # steps before the timed ones: cuDNN's autotune, the first allocations
 
@@ -71,11 +73,12 @@ def kind_of(name: str) -> str:
 
 
 def build_step(model: str, num_classes: int = 0, data: str = "device-fake",
-               device: str = "cuda", extra=()):
+               device: str = "cuda", extra=(), s2d_from: Optional[int] = None):
     """``(spec, state, batches)`` of the train step that ``--model`` profiles,
     built through the family's CLI at its defaults; ``extra`` adds CLI flags
     (the CPU test's small widths). ``data`` is the PGGAN step's reals, as
-    ``train_pggan --data`` takes them."""
+    ``train_pggan --data`` takes them; ``s2d_from`` its ``--s2d-from`` (None:
+    the CLI's default, 512)."""
     from gan_lib_tensorflow_tpu_torch.cli import (common, train_acgan, train_pggan,
                                                   train_pix2pix, train_sngan,
                                                   train_sngan_imagenet)
@@ -104,7 +107,8 @@ def build_step(model: str, num_classes: int = 0, data: str = "device-fake",
         _, _, spec, state = train_pix2pix.build(args)
         return spec, state, iter(train_pix2pix.paired_source(args, n_micro=spec.n_critic))
     # the ladder's top transition step, fed as train_loop feeds it
-    args = train_pggan.parse_args(["--data", data, *flags])
+    s2d = [] if s2d_from is None else ["--s2d-from", str(s2d_from)]
+    args = train_pggan.parse_args(["--data", data, *s2d, *flags])
     res = args.final_resolution
     ph = build_phase(train_pggan.ladder_config(args), res, "transition")
     ph.state.alpha = 0.5
@@ -156,7 +160,8 @@ def profile_step(opts, smi: str) -> None:
     from gan_lib_tensorflow_tpu_torch.ops import power_iteration as pi
     from gan_lib_tensorflow_tpu_torch.train import make_train_step
 
-    spec, state, batches = build_step(opts.model, opts.num_classes, opts.data)
+    spec, state, batches = build_step(opts.model, opts.num_classes, opts.data,
+                                      s2d_from=opts.s2d_from)
     kernels = {"power_iteration": pi, "fadein_blend": fadein}
     step_fn = make_train_step(spec)
     for _ in range(WARMUP):
@@ -168,8 +173,9 @@ def profile_step(opts, smi: str) -> None:
     float(metrics["d_loss"])
     wall = (time.perf_counter() - t0) / opts.steps
     if opts.model == "pggan":
-        print(f"pggan --data {opts.data}: wall {1e3 * wall:.2f} ms/step over {opts.steps} "
-              f"steps after {WARMUP}  [{smi}]", flush=True)
+        s2d = 512 if opts.s2d_from is None else opts.s2d_from
+        print(f"pggan --data {opts.data} --s2d-from {s2d}: wall {1e3 * wall:.2f} ms/step "
+              f"over {opts.steps} steps after {WARMUP}  [{smi}]", flush=True)
         if opts.data not in ("device-fake", "device-rich"):
             return  # the host renderer's time is the question, not the trace's
     for mod in kernels.values():
@@ -179,7 +185,8 @@ def profile_step(opts, smi: str) -> None:
             metrics = step_fn(state, next(batches))
         float(metrics["d_loss"])
         torch.cuda.synchronize()
-    name = opts.model + (f"_{opts.num_classes}c" if opts.num_classes else "")
+    name = opts.model + (f"_{opts.num_classes}c" if opts.num_classes else "") + (
+        f"_s2d{opts.s2d_from}" if opts.s2d_from is not None else "")
     report(prof, opts.steps, wall, smi, kernels, opts.top, name)
 
 
@@ -289,6 +296,10 @@ def main() -> None:
                    choices=["fake", "fake-rich", "device-fake", "device-rich"],
                    help="pggan: the reals (train_pggan --data); the host renderers "
                         "are timed, not traced")
+    p.add_argument("--s2d-from", type=int, default=None,
+                   help="pggan: train_pggan --s2d-from (default: the CLI's 512, "
+                        "the 1024^2 top level on the space-to-depth grid; 0: the "
+                        "composed top level)")
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--top", type=int, default=25)
     opts = p.parse_args()

@@ -434,11 +434,12 @@ def test_eval_every_and_evaluate_cli_under_two_ranks(tmp_path, monkeypatch):
 @pytest.mark.parametrize("n", [2, 4])
 def test_dryrun_multichip(n, capsys):
     """The port of ``__graft_entry__.dryrun_multichip``: every family's step
-    on n CPU ranks (DP x TP 2 x 2 for SNGAN at 4), all metrics finite."""
+    on n CPU ranks (DP x TP 2 x 2 for SNGAN at 4; PGGAN under DP x SP n/2 x
+    2, S2D top level), all metrics finite."""
     from gan_lib_tensorflow_tpu_torch.dryrun import dryrun_multichip
     dryrun_multichip(n, timeout=240)
     out = capsys.readouterr().out
     for name in ("sngan", "device-cached-input", "sharded-eval", "acgan-dp",
-                 "pix2pix-dp", "imagenet-dp"):
+                 "pix2pix-dp", "imagenet-dp", "pggan-spatial"):
         assert f"dryrun {name} ok" in out, out
     assert ("'model': 2" in out) == (n == 4)

@@ -161,13 +161,37 @@ def test_one_process_without_a_launcher_has_no_mesh(monkeypatch):
     assert common.maybe_mesh(_args("--no-mesh")) is None
 
 
-def test_pggan_refuses_tp_and_sp_shards():
+def test_pggan_refuses_tp_and_sp_shards(monkeypatch, capsys):
+    """PGGAN refuses --tp-shards (as the reference); --sp-shards runs when
+    its shards of every sharded level hold an even number of rows, 4 or
+    more (a power of two up to final/4), and must divide the world size."""
     from gan_lib_tensorflow_tpu_torch.cli import train_pggan
     with pytest.raises(SystemExit, match="--tp-shards is not supported"):
         train_pggan.parse_args(["--device", "cpu", "--tp-shards", "2"])
-    with pytest.raises(SystemExit, match="--sp-shards 2"):
-        train_pggan.parse_args(["--device", "cpu", "--sp-shards", "2"])
+    for bad in (["--sp-shards", "3"], ["--sp-shards", "0"],
+                ["--sp-shards", "4", "--final-resolution", "8"]):
+        with pytest.raises(SystemExit) as e:
+            train_pggan.parse_args(["--device", "cpu", *bad])
+        assert e.value.code == 2
+        assert f"--sp-shards {bad[1]}" in capsys.readouterr().err
     assert train_pggan.parse_args(["--device", "cpu", "--sp-shards", "1"]).sp_shards == 1
+    args = train_pggan.parse_args(["--device", "cpu", "--sp-shards", "2",
+                                   "--final-resolution", "8"])
+    assert args.sp_shards == 2
+    monkeypatch.setenv("WORLD_SIZE", "3")
+    with pytest.raises(ValueError, match="--sp-shards 2 must divide the world size 3"):
+        common.maybe_mesh(args)
+    with pytest.raises(SystemExit, match="conflict"):
+        common.maybe_mesh(train_pggan.parse_args(["--device", "cpu", "--sp-shards", "2",
+                                                  "--no-mesh"]))
+
+
+def test_pggan_s2d_from_defaults_to_the_references_512():
+    from gan_lib_tensorflow_tpu_torch.cli import train_pggan
+    args = train_pggan.parse_args(["--device", "cpu"])
+    assert args.s2d_from == 512
+    assert train_pggan.ladder_config(args).s2d_from_resolution == 512
+    assert train_pggan.parse_args(["--device", "cpu", "--s2d-from", "0"]).s2d_from == 0
 
 
 @pytest.mark.parametrize("cli", ["train_sngan", "train_sngan_imagenet", "train_acgan",

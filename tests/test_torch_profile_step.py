@@ -36,3 +36,16 @@ def test_pggan_step_runs_on_each_data_choice(data):
         assert metrics and all(math.isfinite(float(v)) for v in metrics.values())
     finally:
         batches.close()  # stops a host renderer's worker threads
+
+
+@pytest.mark.parametrize("s2d_from,top", [(8, "_GenBlockS2D"), (0, "_GenBlock")])
+def test_pggan_step_takes_s2d_from(s2d_from, top):
+    """``--s2d-from`` reaches the step: the top level on the space-to-depth
+    grid at 8 (this test's final resolution), composed at 0; one step on it
+    gives finite metrics."""
+    spec, state, batches = _profiler().build_step("pggan", device="cpu", extra=SMALL,
+                                                  s2d_from=s2d_from)
+    assert type(state.g.block_8).__name__ == top
+    assert type(state.d.block_8).__name__ == top.replace("Gen", "Disc")
+    metrics = make_train_step(spec)(state, next(batches))
+    assert all(math.isfinite(float(v)) for v in metrics.values())
