@@ -177,10 +177,27 @@ final line):
      ``cli.sample``: its grid against the 4-rank run's own writer's, within
      one level of 255 at under 0.1% of the values; then the fade-in at the
      shapes an 'sp' rank gives it
+ 17. the tools (``gan_lib_tensorflow_tpu_torch/tools/``), each run in this
+     process at the reference tool's configuration with few timed steps:
+     every JSON row with the reference's keys and no ``error``;
+     ``bench_step`` (sngan, acgan, imagenet) with 6 power-iteration
+     launches per sngan and imagenet step; ``bench_pggan`` and
+     ``decompose_pggan`` at 1024^2, batch 4; ``calibrate_rungs`` (acgan,
+     imagenet, pggan1024) with ``tf_per_step`` > 0 and ``mfu_nominal`` in
+     (0, 1]; ``probe_cond_cost``, ``bench_eval``, ``bench_loader``,
+     ``bench_kstep`` (chained and one CUDA graph of K steps); the npz
+     ``prepack_dataset`` into a 128^2 pyramid; the InceptionV3 converter on
+     a random torchvision-layout state dict, its npz's features on the card
+     within 1e-4 (relative to the largest) of the CPU's; ``train_sngan
+     --data fake|fake-rich|device-fake|device-rich`` 2 steps each (the host
+     words through ``ThreadedSource``), the last with ``--curves`` (PNGs
+     read back), ``--tensorboard`` (its note, and the run goes on) and
+     ``--compile-cache`` (its note)
 
 The power iteration's ``launches`` in the kernels' record are those of
-phase 5's SNGAN run, phase 12's conditional SNGAN run and every run of
-phase 15 (each rank's and the one-rank runs'); the fade-in's are those of
+phase 5's SNGAN run, phase 12's conditional SNGAN run, every run of
+phase 15 (each rank's and the one-rank runs') and the runs of phase 17's
+tools and ``--data`` words; the fade-in's are those of
 phase 6's ladder, phase 14's ladder (b) and the ladders and steps of phases
 15 and 16 (each rank's and the one-process runs').
 
@@ -191,7 +208,9 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import copy
+import io
 import json
 import math
 import os
@@ -258,6 +277,9 @@ S2D_WARM, S2D_TIMED, S2D_ROUNDS = 2, 3, 2
 # the fade-in's blends on one 'sp' rank of the 1024^2 transition step: half
 # the height at batch 4 ('sp' 2) and at 2 images per 'data' rank (DP x SP 2 x 2)
 FADEIN_SP_SHAPES = [(4, 3, 512, 1024), (4, 32, 256, 512), (2, 3, 512, 1024), (2, 32, 256, 512)]
+# the tools (phase 17): few timed steps each; the words of --data on train_sngan
+TOOL_TIMED = 3
+DATA_WORDS = ["fake", "fake-rich", "device-fake", "device-rich"]
 
 
 def nvidia_smi(fields: str) -> str:
@@ -530,7 +552,7 @@ def sample_and_evaluate(card: str, model_args: list, ckpt: str, tmp: str, n: int
     sample_grid(model_args, ckpt, tmp, n, rows)
     t0 = time.perf_counter()
     rec = evaluate.main(model_args + ["--ckpt-dir", ckpt, "--n-samples", "1000",
-                                      "--n-real", "1000", "--data", "fake",
+                                      "--n-real", "1000", "--data", "device-fake",
                                       "--real-stats-npz", os.path.join(tmp, "real.npz"),
                                       "--device", "cuda"])
     check(all(math.isfinite(rec[k]) for k in ("inception_score", "fid"))
@@ -557,7 +579,7 @@ def checkpoint_resume_eval(card: str, tmp: str) -> None:
     from gan_lib_tensorflow_tpu_torch.train.pggan_loop import train_pggan_ladder
 
     # (a) SNGAN: fault at step 6, resume from the step-4 checkpoint to 12
-    sn_args = ["--data", "fake", "--device", "cuda", "--batch-size", str(BATCH),
+    sn_args = ["--data", "device-fake", "--device", "cuda", "--batch-size", str(BATCH),
                "--n-critic", str(N_CRITIC), "--ema-decay", "0.9999", "--compute-dtype",
                "bf16", "--sample-every", "6"]
     straight, run, counts = resume_bit_equal(train_sngan.main, sn_args, tmp, "SNGAN",
@@ -593,7 +615,7 @@ def checkpoint_resume_eval(card: str, tmp: str) -> None:
     timed_calls(evaluate, "compute_statistics", reals)
     timed_calls(metrics, "frechet_distance", fids)  # host sqrtm, inside each pass
     ev_args = ["--model", "sngan", "--ckpt-dir", os.path.join(run, "ckpt"),
-               "--n-samples", "5000", "--n-real", "5000", "--data", "fake",
+               "--n-samples", "5000", "--n-real", "5000", "--data", "device-fake",
                "--real-stats-npz", os.path.join(tmp, "real_stats.npz"), "--device", "cuda"]
     results, logs = [], []
     for _ in range(2):
@@ -990,7 +1012,7 @@ def acgan_and_conditional_sngan(card: str, tmp: str) -> int:
     kernels = {"power_iteration": pi, "fadein_blend": fd}
 
     # (a) ACGAN at full width through its CLI: timed, then faulted and resumed
-    ac_args = ["--data", "fake", "--device", "cuda", "--batch-size", str(ACGAN_BATCH),
+    ac_args = ["--data", "device-fake", "--device", "cuda", "--batch-size", str(ACGAN_BATCH),
                "--compute-dtype", "bf16", "--adversarial", "bce", "--aux-weight", "1.0",
                "--sample-every", "1000"]
     timed_dir = os.path.join(tmp, "acgan_timed")
@@ -1047,7 +1069,7 @@ def acgan_and_conditional_sngan(card: str, tmp: str) -> int:
                         tmp, 100, 10)
 
     # (b) the conditional CIFAR SNGAN at full width: 12 SN weights per launch
-    sn_args = ["--data", "fake", "--device", "cuda", "--batch-size", str(BATCH),
+    sn_args = ["--data", "device-fake", "--device", "cuda", "--batch-size", str(BATCH),
                "--n-critic", str(N_CRITIC), "--compute-dtype", "bf16", "--num-classes", "10",
                "--sample-every", "1000", "--ckpt-every", "1000"]
     run = os.path.join(tmp, "sngan_cond")
@@ -1800,7 +1822,7 @@ def multi_rank(card: str, tmp: str, parts: str = "abcdf") -> tuple:
         return st, pi.launches, fd.launches, time.perf_counter() - t0
 
     # (a) SNGAN CIFAR-10, batch 64 (32 per rank), bf16, gloo
-    sn_base = ["--data", "fake", "--batch-size", "64", "--compute-dtype", "bf16"]
+    sn_base = ["--data", "device-fake", "--batch-size", "64", "--compute-dtype", "bf16"]
     sn = sn_base + ["--steps", str(MR_SNGAN_STEPS), "--log-every", "1"]
     if "a" in parts:
         # with SGD in place of Adam, an update linear in the gradient, so the
@@ -1876,7 +1898,7 @@ def multi_rank(card: str, tmp: str, parts: str = "abcdf") -> tuple:
 
     if "b" in parts:
         # (b) SNGAN-projection ImageNet-128, full width, 'data' 1 x 'model' 2
-        im = ["--data", "fake", "--batch-size", str(MR_IMAGENET_BATCH), "--compute-dtype", "bf16",
+        im = ["--data", "device-fake", "--batch-size", str(MR_IMAGENET_BATCH), "--compute-dtype", "bf16",
               "--steps", str(MR_IMAGENET_STEPS), "--log-every", "1"]
         recs = torchrun(MR_RANKS, os.path.join(tmp, "b"), "train_sngan_imagenet",
                         im + ["--tp-shards", "2", "--out-dir", os.path.join(tmp, "b2")])
@@ -2017,7 +2039,7 @@ def multi_rank(card: str, tmp: str, parts: str = "abcdf") -> tuple:
               f"spans of power_iteration_kernel (6 per step)", flush=True)
 
         def nan_step(module_path: str, what: str) -> str:
-            args = train_sngan.parse_args(["--data", "fake", "--device", "cuda", "--batch-size",
+            args = train_sngan.parse_args(["--data", "device-fake", "--device", "cuda", "--batch-size",
                                            "8", "--n-critic", "1", "--debug-nans"])
             _, _, spec, st = train_sngan.build(args)
             src = iter(common.image_source(args, 8, 32, 10, n_micro=1))
@@ -2343,6 +2365,167 @@ def spatial_partitioning(card: str, tmp: str) -> tuple:
     return fd_total, times
 
 
+def tool_rows(module, argv: list, keys: set) -> list:
+    """Run a tool's ``main(argv)`` in this process; its JSON rows, each
+    checked for ``keys`` and no ``error``, its return code for 0."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    out = buf.getvalue()
+    print(out, end="", flush=True)
+    rows = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    name = module.__name__.rsplit(".", 1)[-1]
+    check(rc == 0 and rows, f"{name} {argv}: rc {rc}, {len(rows)} rows")
+    for row in rows:
+        check("error" not in row and keys <= set(row), f"{name}: row {row} lacks {keys}")
+    print(f"{name}: {len(rows)} rows in {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
+
+
+def tools_on_the_card(card: str, tmp: str) -> int:
+    """Phase 17: the tools and the --data words on the card; returns the
+    power-iteration launches of its runs (6 per SNGAN or ImageNet step)."""
+    import numpy as np
+    import torch
+
+    from gan_lib_tensorflow_tpu_torch import data
+    from gan_lib_tensorflow_tpu_torch.cli import common, train_sngan
+    from gan_lib_tensorflow_tpu_torch.eval.inception_v3 import InceptionV3Features
+    from gan_lib_tensorflow_tpu_torch.ops import fadein as fd
+    from gan_lib_tensorflow_tpu_torch.ops import power_iteration as pi
+    from gan_lib_tensorflow_tpu_torch.tools import (bench_eval, bench_kstep, bench_loader,
+                                                    bench_pggan, bench_step, calibrate_rungs,
+                                                    convert_inception_weights,
+                                                    decompose_pggan, prepack_dataset,
+                                                    probe_cond_cost)
+
+    timed = str(TOOL_TIMED)
+    pi_total, fd_before = 0, fd.launches
+
+    def launches_per_step(expected: int, what: str) -> None:
+        nonlocal pi_total
+        check(pi.launches == expected, f"{what}: {pi.launches} power-iteration launches, "
+              f"want {expected}")
+        pi_total += pi.launches
+
+    pi.launches = 0
+    rows = tool_rows(bench_step, ["--model", "sngan", "acgan", "imagenet", "--timed-steps",
+                                  timed], {"model", "batch", "n_critic", "ms_per_step",
+                                           "img_per_sec"})
+    check([(r["model"], r["batch"], r["n_critic"]) for r in rows]
+          == [("sngan", 64, 5), ("acgan", 100, 1), ("imagenet", 64, 5)],
+          f"bench_step's configurations {rows}")
+    launches_per_step(2 * 6 * (3 + TOOL_TIMED), "bench_step sngan + imagenet")
+
+    tool_rows(bench_pggan, ["--resolution", "1024", "--batch", "4", "--remat-from", "0",
+                            "--fused-from", "128", "--s2d-from", "0", "512",
+                            "--timed-steps", timed],
+              {"resolution", "batch", "remat_from", "fused_from", "s2d_from", "ms_per_step",
+               "img_per_sec"})
+    (dec,) = tool_rows(decompose_pggan, ["--res", "1024", "--batch", "4", "--s2d-from", "512",
+                                         "--reps", timed],
+                       {"s2d_from", "res", "batch", "g_fwd_ms", "d_fwd_ms", "g_grad_ms",
+                        "gp_grad_ms", "d_grad_full_ms"})
+    check(0 < dec["gp_grad_ms"] < dec["d_grad_full_ms"], f"decompose_pggan: {dec}")
+
+    pi.launches = 0
+    rows = tool_rows(calibrate_rungs, ["--rungs", "acgan", "imagenet", "pggan1024",
+                                       "--s2d-from", "512", "--timed-steps", timed],
+                     {"rung", "batch", "ms_per_step", "img_per_sec", "tf_per_step",
+                      "roofline_ms_nominal", "roofline_ms_achieved", "mfu_nominal",
+                      "frac_of_achieved"})
+    for row in rows:
+        check(row["tf_per_step"] > 0 and 0 < row["mfu_nominal"] <= 1,
+              f"calibrate_rungs {row['rung']}: tf {row['tf_per_step']}, "
+              f"mfu {row['mfu_nominal']}")
+    launches_per_step(6 * (2 + TOOL_TIMED), "calibrate_rungs imagenet")
+
+    pi.launches = 0
+    tool_rows(probe_cond_cost, ["--timed-steps", timed],
+              {"config", "ms_per_step", "img_per_sec"})
+    launches_per_step(2 * 6 * (3 + TOOL_TIMED), "probe_cond_cost cond + uncond")
+
+    tool_rows(bench_eval, ["--n-samples", "1000", "--batch-size", "100"],
+              {"mode", "n_samples", "wall_s", "samples_per_s", "is", "trace_cov"})
+    tool_rows(bench_loader, ["--n", "4000", "--size", "128", "--batch", "64", "--n-batches",
+                             "50", "--rss-demo", "--store-dir", os.path.join(tmp, "store")],
+              set())
+    rows = tool_rows(bench_kstep, ["--ks", "1", "5", "--reps", "10"],
+                     {"model", "mode", "k", "ms_per_step"})
+    check(sorted({(r["model"], r["mode"]) for r in rows})
+          == [("acgan", "chained"), ("acgan", "fused"), ("pix2pix", "chained"),
+              ("pix2pix", "fused")], f"bench_kstep's rows {rows}")
+
+    # the npz prepack into a pyramid store, read back member by member
+    rng = np.random.default_rng(0)
+    src = os.path.join(tmp, "npz")
+    os.makedirs(src)
+    for i in range(2):
+        np.savez(os.path.join(src, f"part{i}.npz"),
+                 data=rng.integers(0, 256, (32, 128, 128, 3), np.uint8),
+                 labels=rng.integers(0, 10, 32))
+    res = [128 >> i for i in range(6)]
+    tool_rows(prepack_dataset, ["--src", src, "--out", os.path.join(tmp, "pyr"), "--size",
+                                "128", "--resolutions", ",".join(map(str, res))],
+              {"packed", "resolutions", "bytes"})
+    for r in res:
+        store = data.open_pyramid(os.path.join(tmp, "pyr"), batch_size=8, resolution=r)
+        check(len(store) == 64 and store.image_size == r and store.num_classes == 10,
+              f"pyramid member {r}: {len(store)} images at {store.image_size}^2")
+
+    # the InceptionV3 converter on a random torchvision-layout state dict
+    pth, npz = os.path.join(tmp, "inception.pth"), os.path.join(tmp, "inception.npz")
+    torch.save(convert_inception_weights.torchvision_state_dict(0), pth)
+    check(convert_inception_weights.main([pth, npz, "--verify", "--device", "cuda"]) == 0,
+          "convert_inception_weights --verify")
+    images = torch.rand(4, 64, 64, 3, generator=torch.Generator().manual_seed(0)) * 2 - 1
+    got, _ = InceptionV3Features(params_npz=npz, device="cuda")(images.cuda())
+    want, _ = InceptionV3Features(params_npz=npz, device="cpu")(images)
+    rel = float((got.cpu() - want).abs().max() / want.abs().max())
+    check(rel <= 1e-4 and bool(torch.isfinite(got).all()),
+          f"converted InceptionV3 features, card vs CPU: {rel:.3e} of the largest")
+    print(f"convert_inception_weights: torchvision layout -> npz, features of 4 images "
+          f"on the card vs the CPU within {rel:.3e} of the largest ({float(want.abs().max()):.4g})")
+
+    # every --data word of the reference on train_sngan, 2 steps each
+    pi.launches = 0
+    for word in DATA_WORDS:
+        out_dir = os.path.join(tmp, f"data_{word}")
+        extra = (["--curves", "--tensorboard", "--compile-cache", os.path.join(tmp, "cc")]
+                 if word == DATA_WORDS[-1] else [])
+        sources, buf = [], io.StringIO()
+        inner = captured(common, "image_source", sources)
+        try:
+            with contextlib.redirect_stdout(buf):
+                train_sngan.main(["--data", word, "--device", "cuda", "--steps", "2",
+                                  "--batch-size", str(BATCH),
+                                  "--log-every", "1", "--sample-every", "1000",
+                                  "--out-dir", out_dir] + extra)
+        finally:
+            common.image_source = inner
+        printed = buf.getvalue()
+        host = isinstance(sources[0], data.ThreadedSource)
+        check(host == (not word.startswith("device-")), f"--data {word}: {sources[0]}")
+        check(len(read_log(out_dir)) == 2, f"--data {word}: {read_log(out_dir)}")
+        last_sec_per_step(out_dir)
+        if extra:
+            check("tensorboard logging unavailable" in printed
+                  or os.path.isdir(os.path.join(out_dir, "tb")), "--tensorboard did nothing")
+            check("--compile-cache" in printed, "--compile-cache printed no note")
+            curves = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+            check({"d_loss.png", "g_loss.png"} <= set(curves), f"--curves wrote {curves}")
+            shapes = {read_png(os.path.join(out_dir, f)).shape for f in curves}
+            check(shapes == {(300, 600, 3)}, f"curve PNG shapes {shapes}")
+            print(f"--curves: {curves}; --tensorboard: "
+                  f"{[l for l in printed.splitlines() if 'tensorboard' in l]}")
+        print(f"--data {word}: {type(sources[0]).__name__}, 2 steps", flush=True)
+    launches_per_step(len(DATA_WORDS) * 6 * 2, "train_sngan --data words")
+    check(fd.launches == fd_before, "a tool launched the fade-in")
+    print(f"phase 17 power-iteration launches: {pi_total}  [{card}]", flush=True)
+    return pi_total
+
+
 def main() -> None:
     import torch
 
@@ -2420,7 +2603,7 @@ def main() -> None:
 
     phase("5 SNGAN main path: fused CIFAR-10 step")
     args = train_sngan.parse_args([
-        "--data", "fake", "--device", "cuda", "--batch-size", str(BATCH),
+        "--data", "device-fake", "--device", "cuda", "--batch-size", str(BATCH),
         "--n-critic", str(N_CRITIC), "--ema-decay", "0.9999",
         "--compute-dtype", "bf16", "--steps", str(WARM_STEPS + TIMED_STEPS)])
     g, d, spec, state = train_sngan.build(args)
@@ -2700,12 +2883,21 @@ def main() -> None:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 16: {time.perf_counter() - t16:.1f} s  [{card}]")
 
+    phase("17 the tools: benches, FLOP calibration, InceptionV3 convert, npz prepack, --data words")
+    t17 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        tools_pi = tools_on_the_card(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 17: {time.perf_counter() - t17:.1f} s  [{card}]")
+
     print(json.dumps({"kernels": [{
         "name": "batched_power_iteration",
         "route": "cuda",
         "source": "gan_lib_tensorflow_tpu_torch/csrc/power_iteration.cu",
         "replaces": "gan_lib_tensorflow_tpu/ops/pallas_kernels.py:63",
-        "launches": main_launches + cond_launches + mr_pi,
+        "launches": main_launches + cond_launches + mr_pi + tools_pi,
         "max_abs_err": err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

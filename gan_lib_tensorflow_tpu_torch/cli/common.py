@@ -1,6 +1,7 @@
-"""Shared CLI plumbing (port of ``gan_lib_tensorflow_tpu/cli/common.py``
-without its XLA compile cache, curves and TensorBoard: the flag vocabulary,
-``configure``, ``maybe_mesh``, ``device_cache_kwargs`` and ``image_source``).
+"""Shared CLI plumbing (port of ``gan_lib_tensorflow_tpu/cli/common.py``):
+the flag vocabulary, ``configure``, ``maybe_mesh``, ``device_cache_kwargs``
+and ``image_source``. ``--compile-cache`` configures XLA's compile cache in
+the reference; it is accepted here and ignored with a note.
 
 Multi-device runs start one process per rank with ``torchrun
 --nproc_per_node R -m gan_lib_tensorflow_tpu_torch.cli.<x> ...``; a plain
@@ -20,11 +21,13 @@ from .. import data
 from ..parallel import Mesh, create_mesh
 from ..utils import debug_nans
 
-DATA_HELP = ("data backend: 'auto' (real CIFAR-10 when it is found, else "
-             "synthetic with a note), 'cifar10' (must be found), 'fake' "
-             "(synthetic blob images rendered on the device; it stands in for "
-             "the reference's 'fake' and 'device-fake'), or a PATH: a packed "
-             "store or a cifar-10-batches-py directory, which must resolve")
+SYNTHETIC = ("fake", "fake-rich", "device-fake", "device-rich")
+DATA_HELP = ("data backend: 'auto' (real CIFAR-10 when it is found, else 'fake' "
+             "with a note), 'cifar10' (must be found), 'fake' / 'fake-rich' "
+             "(synthetic class blobs, or the richer multi-blob style, rendered "
+             "on the host by two workers), 'device-fake' / 'device-rich' (the "
+             "same styles rendered on the device), or a PATH: a packed store or "
+             "a cifar-10-batches-py directory, which must resolve")
 
 
 def base_parser(description: str, data_help: str = DATA_HELP) -> argparse.ArgumentParser:
@@ -64,6 +67,14 @@ def base_parser(description: str, data_help: str = DATA_HELP) -> argparse.Argume
     p.add_argument("--debug-nans", action="store_true",
                    help="raise FloatingPointError at the first operation that "
                         "makes a NaN, in forward and backward (slow)")
+    p.add_argument("--curves", action="store_true",
+                   help="write a curve PNG per logged metric under --out-dir")
+    p.add_argument("--tensorboard", action="store_true",
+                   help="also write TensorBoard scalars (and pix2pix's images) "
+                        "under --out-dir/tb, when torch's SummaryWriter imports")
+    p.add_argument("--compile-cache", default=None, metavar="DIR",
+                   help="the reference's XLA compile-cache directory; accepted "
+                        "and ignored (nothing here is compiled ahead)")
     return p
 
 
@@ -71,6 +82,9 @@ def configure(args) -> None:
     """Apply the process-wide debug flags before anything is built."""
     if getattr(args, "debug_nans", False):
         debug_nans.enable()
+    if getattr(args, "compile_cache", None) is not None:
+        print(f"note: --compile-cache {args.compile_cache} configures XLA's compile "
+              "cache in the JAX package and is ignored here", flush=True)
 
 
 def maybe_mesh(args) -> Optional[Mesh]:
@@ -135,18 +149,37 @@ def device_cache_kwargs(args) -> dict:
             "budget_bytes": int(args.device_cache_gb * 2**30)}
 
 
+def synthetic_source(word: str, args, batch_size: int, image_size: int,
+                     num_classes: int, n_micro: int = 1, mesh: Optional[Mesh] = None):
+    """The source of a word of ``SYNTHETIC``: host ``FakeImages`` behind a
+    ``ThreadedSource`` for 'fake' / 'fake-rich', ``DeviceFakeImages`` on
+    ``args.device`` (on ``mesh``) for 'device-fake' / 'device-rich'."""
+    style = "rich" if word.endswith("-rich") else "blobs"
+    if word.startswith("device-"):
+        return data.DeviceFakeImages(batch_size=batch_size, image_size=image_size,
+                                     num_classes=num_classes, seed=args.seed,
+                                     n_micro=n_micro, style=style, device=args.device,
+                                     mesh=mesh)
+    return data.ThreadedSource(data.FakeImages(
+        batch_size=batch_size, image_size=image_size, num_classes=num_classes,
+        seed=args.seed, style=style))
+
+
 def image_source(args, batch_size: int, image_size: int, num_classes: int,
                  n_micro: int = 1, mesh: Optional[Mesh] = None):
-    """Resolve --data to a source for ``train_loop``.
+    """Resolve --data to a source for ``train_loop`` (reference
+    ``cli/common.py:141-218``).
 
-    'auto' prefers real CIFAR-10 and falls back to synthetic data with a
-    printed note; 'cifar10' requires it; a PATH must resolve (a packed store
-    of ``image_size``, with labels when ``num_classes`` > 0, or a CIFAR-10
+    'auto' prefers real CIFAR-10 and falls back to 'fake' with a printed
+    note; 'cifar10' requires it; the four synthetic words are
+    ``synthetic_source``'s; a PATH must resolve (a packed store of
+    ``image_size``, with labels when ``num_classes`` > 0, or a CIFAR-10
     pickle directory) and never falls back. Real data is held on the card
     (``DeviceCachedStore``) when the --device-cache policy allows, else
     streamed as uint8 by one host worker and normalized on the card. On a
     ``mesh`` the on-device sources yield the rank's rows of each global
-    ``batch_size``, and the train loop cuts a stream's batches the same way."""
+    ``batch_size``, and the train loop cuts a host stream's global batches
+    the same way (``ThreadedSource`` delivers them in a fixed order)."""
     def cifar(data_dir=None):
         store = data.Cifar10(batch_size=batch_size, data_dir=data_dir, seed=args.seed)
         kw = device_cache_kwargs(args)
@@ -159,6 +192,9 @@ def image_source(args, batch_size: int, image_size: int, num_classes: int,
                 device=args.device, max_bytes=kw["budget_bytes"], mesh=mesh)
         return data.ThreadedSource(store, num_workers=1)
 
+    if args.data in SYNTHETIC:
+        return synthetic_source(args.data, args, batch_size, image_size, num_classes,
+                                n_micro, mesh)
     if args.data in ("auto", "cifar10"):
         if image_size != 32:
             if args.data == "cifar10":
@@ -171,30 +207,28 @@ def image_source(args, batch_size: int, image_size: int, num_classes: int,
                 if args.data == "cifar10":
                     raise
                 print("note: CIFAR-10 not found on disk; using synthetic data", flush=True)
-    elif args.data != "fake":
-        if not os.path.isdir(args.data):
-            raise FileNotFoundError(f"--data {args.data!r}: no such directory")
-        if data.is_packed_dir(args.data):
-            store = data.PackedImageStore(args.data, batch_size=batch_size, seed=args.seed)
-            if store.image_size != image_size:
-                raise ValueError(f"--data {args.data}: packed store is "
-                                 f"{store.image_size}^2 but this model trains at "
-                                 f"{image_size}^2")
-            if num_classes > 0 and store.labels is None:
-                raise ValueError(f"--data {args.data}: packed store has no labels.npy "
-                                 f"but the model is conditional (num_classes="
-                                 f"{num_classes})")
-            return data.packed_training_source(
-                args.data, batch_size=batch_size, n_micro=n_micro, seed=args.seed,
-                device=args.device, mesh=mesh, **device_cache_kwargs(args))
-        if not os.path.isfile(os.path.join(args.data, "data_batch_1")):
-            raise FileNotFoundError(f"--data {args.data}: neither a packed store "
-                                    f"({data.packed.META_NAME}) nor a CIFAR-10 "
-                                    f"directory (data_batch_1)")
-        if image_size != 32:
-            raise ValueError(f"--data {args.data}: a CIFAR-10 directory is 32^2 but "
-                             f"this model trains at {image_size}^2")
-        return cifar(data_dir=args.data)
-    return data.DeviceFakeImages(batch_size=batch_size, image_size=image_size,
-                                 num_classes=num_classes, seed=args.seed,
-                                 n_micro=n_micro, device=args.device, mesh=mesh)
+        return synthetic_source("fake", args, batch_size, image_size, num_classes,
+                                n_micro, mesh)
+    if not os.path.isdir(args.data):
+        raise FileNotFoundError(f"--data {args.data!r}: no such directory")
+    if data.is_packed_dir(args.data):
+        store = data.PackedImageStore(args.data, batch_size=batch_size, seed=args.seed)
+        if store.image_size != image_size:
+            raise ValueError(f"--data {args.data}: packed store is "
+                             f"{store.image_size}^2 but this model trains at "
+                             f"{image_size}^2")
+        if num_classes > 0 and store.labels is None:
+            raise ValueError(f"--data {args.data}: packed store has no labels.npy "
+                             f"but the model is conditional (num_classes="
+                             f"{num_classes})")
+        return data.packed_training_source(
+            args.data, batch_size=batch_size, n_micro=n_micro, seed=args.seed,
+            device=args.device, mesh=mesh, **device_cache_kwargs(args))
+    if not os.path.isfile(os.path.join(args.data, "data_batch_1")):
+        raise FileNotFoundError(f"--data {args.data}: neither a packed store "
+                                f"({data.packed.META_NAME}) nor a CIFAR-10 "
+                                f"directory (data_batch_1)")
+    if image_size != 32:
+        raise ValueError(f"--data {args.data}: a CIFAR-10 directory is 32^2 but "
+                         f"this model trains at {image_size}^2")
+    return cifar(data_dir=args.data)

@@ -63,9 +63,11 @@ def parse_args(argv=None):
     p.add_argument("--batch-size", type=int, default=100)
     p.add_argument("--data", default="auto",
                    help="real-data source for FID: 'auto' (CIFAR-10 when found "
-                        "and the model is 32^2, else synthetic), 'cifar10', "
-                        "'fake' (synthetic blobs rendered on the device), or a "
-                        "PATH (packed store, or a CIFAR-10 directory at 32^2); "
+                        "and the model is 32^2, else 'fake'), 'cifar10', "
+                        "'fake' / 'fake-rich' (synthetic blobs rendered on the "
+                        "host), 'device-fake' / 'device-rich' (rendered on the "
+                        "device), or a PATH (packed store, or a CIFAR-10 "
+                        "directory at 32^2); "
                         "for SWD (pggan): a pyramid or packed store, "
                         "'device-rich' or 'device-fake'")
     p.add_argument("--n-real", type=int, default=10_000)
@@ -163,7 +165,7 @@ def real_image_batches(args, device, image_size: int):
     bs = args.batch_size
 
     def host(src):
-        return prefetch_to_device(iter(src), device)
+        return (b["image"] for b in prefetch_to_device(iter(src), device))
 
     if args.data == "cifar10" and image_size != 32:
         raise ValueError(f"--data cifar10 is 32^2 but --model {args.model} generates "
@@ -174,9 +176,15 @@ def real_image_batches(args, device, image_size: int):
         except FileNotFoundError:
             if args.data == "cifar10":
                 raise
-    if args.data in ("auto", "fake"):
-        fake = data.DeviceFakeImages(batch_size=bs, image_size=image_size,
-                                     num_classes=10, seed=args.seed, device=device)
+    if args.data in ("auto", "fake", "fake-rich"):
+        # the reference's host renderer, one stream (evaluate.py:102-104, 116-119)
+        fake = data.FakeImages(batch_size=bs, image_size=image_size, seed=args.seed,
+                               style="rich" if args.data == "fake-rich" else "blobs")
+        return host(fake), "synthetic"
+    if args.data in ("device-fake", "device-rich"):
+        fake = data.DeviceFakeImages(
+            batch_size=bs, image_size=image_size, num_classes=10, seed=args.seed,
+            style="rich" if args.data == "device-rich" else "blobs", device=device)
         return (b["image"][0] for b in fake), "synthetic"
     if not os.path.isdir(args.data):
         raise FileNotFoundError(f"--data {args.data!r}: no such directory")
@@ -191,7 +199,7 @@ def real_image_batches(args, device, image_size: int):
     else:
         raise FileNotFoundError(f"--data {args.data}: neither a packed store nor, at "
                                 f"32^2, a CIFAR-10 directory")
-    return (b["image"] for b in host(src)), args.data
+    return host(src), args.data
 
 
 def _restore(args, dev):

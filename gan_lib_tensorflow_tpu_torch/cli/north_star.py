@@ -18,12 +18,12 @@ In order:
 ``--smoke`` runs the same wiring on synthetic data with the random-init
 extractor; its verdict is ``UNGRADED(smoke)``.
 
-One difference from the reference: the reference converts raw Keras ``.h5``
-or torchvision ``.pth`` InceptionV3 weights itself by running
-``tools/convert_inception_weights.py``, which imports JAX. This package does
-not use JAX, so it accepts only the converted ``.npz``; given raw weights it
-lists them as missing, says that the conversion runs where JAX is installed,
-and returns 2.
+Raw InceptionV3 weights (a torchvision ``.pth``/``.pt``, or a keras ``.h5``
+when h5py is installed) are converted here, as the reference converts them,
+by ``tools/convert_inception_weights.py`` of this package, run in this
+process; the result is cached under ``--out-dir``, keyed by the source's
+path, mtime and size. Weights that do not convert are listed as missing,
+with the converter's reason, and the command returns 2.
 
 Usage:
   python -m gan_lib_tensorflow_tpu_torch.cli.north_star \\
@@ -34,10 +34,13 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import sys
 from typing import Optional
+
+import numpy as np
 
 FID_TARGET = 25.0
 
@@ -62,12 +65,32 @@ def find_cifar(data_dir: Optional[str]) -> Optional[str]:
     return None
 
 
-def resolve_inception(path: Optional[str]) -> Optional[str]:
-    """The converted npz at ``path``, or None when there is none. Raw
-    weights are not converted here (see the module docstring)."""
-    if not path or not os.path.exists(path) or not path.endswith(".npz"):
+def resolve_inception(path: Optional[str], out_dir: str = ".") -> Optional[str]:
+    """The converted npz of ``path``, or None when there is no such file.
+    An ``.npz`` is taken as converted; raw weights are converted once into
+    ``out_dir`` (the cache is keyed by the source's absolute path, mtime and
+    size, so a replaced source is converted again). A source the converter
+    refuses raises ``SystemExit`` with its reason."""
+    if not path or not os.path.exists(path):
         return None
-    return path
+    if path.endswith(".npz"):
+        return path
+    st = os.stat(path)
+    key = hashlib.sha256(f"{os.path.abspath(path)}:{st.st_mtime_ns}:{st.st_size}"
+                         .encode()).hexdigest()[:16]
+    converted = os.path.join(out_dir, f"inception_v3_converted.{key}.npz")
+    if os.path.exists(converted):
+        return converted
+    from ..tools import convert_inception_weights
+
+    print(f"converting {path} -> {converted}", flush=True)
+    tensors = convert_inception_weights.convert(path)
+    os.makedirs(out_dir, exist_ok=True)
+    partial = converted + ".partial"  # a cut write must not pass for the cache
+    with open(partial, "wb") as f:
+        np.savez(f, **tensors)
+    os.replace(partial, converted)
+    return converted
 
 
 def main(argv=None) -> int:
@@ -75,7 +98,8 @@ def main(argv=None) -> int:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--data-dir", default=None, help="dir containing cifar-10-batches-py")
     p.add_argument("--inception-weights", default=None,
-                   help="InceptionV3 weights converted to the JAX package's npz layout")
+                   help="converted npz, or raw torchvision .pth / keras .h5 "
+                        "(converted here)")
     p.add_argument("--out-dir", default="runs/north_star")
     p.add_argument("--steps", type=int, default=100_000)
     p.add_argument("--n-samples", type=int, default=50_000)
@@ -102,22 +126,23 @@ def main(argv=None) -> int:
     else:
         w = args.inception_weights
         cifar_dir = find_cifar(args.data_dir)
-        weights = resolve_inception(w)
         missing = []
         if cifar_dir is None:
             missing.append(
                 "  * CIFAR-10: put cifar-10-batches-py/ under --data-dir "
                 "(https://www.cs.toronto.edu/~kriz/cifar-10-python.tar.gz)")
-        if weights is None and w and os.path.exists(w):
-            missing.append(
-                f"  * InceptionV3 weights: {w} is not a converted .npz; the "
-                f"conversion imports JAX, so run it where JAX is installed "
-                f"(python tools/convert_inception_weights.py {w} "
-                f"inception_v3.npz) and pass the .npz")
-        elif weights is None:
-            missing.append(
-                "  * InceptionV3 weights: pass --inception-weights <converted.npz> "
-                "(see tools/convert_inception_weights.py)")
+        try:
+            weights = resolve_inception(w, args.out_dir)
+        except (SystemExit, Exception) as e:  # the converter's refusal, reported
+            weights = None
+            missing.append(f"  * InceptionV3 weights: {w} could not be converted "
+                           f"({type(e).__name__}: {e})")
+        else:
+            if weights is None:
+                missing.append(
+                    "  * InceptionV3 weights: pass --inception-weights <converted.npz | "
+                    "torchvision .pth | keras .h5> (see python -m "
+                    "gan_lib_tensorflow_tpu_torch.tools.convert_inception_weights)")
         if missing:
             print("north-star assets missing:\n" + "\n".join(missing))
             print("nothing trained; the verdict requires real assets "

@@ -7,8 +7,8 @@ default).
 
 --data, each phase's reals at its own resolution (reference ``:103-155``):
 'auto'/'fake' (one-class blobs rendered on the host, the reference's numpy
-renderer, behind a ``ThreadedSource``: two workers, or one on a mesh, so
-that every rank reads the same global batches), 'fake-rich' (the same,
+renderer, behind a ``ThreadedSource`` of two workers whose batches come in a
+fixed order, so that every rank reads the same global batches), 'fake-rich' (the same,
 ``rich`` style), 'device-fake'/'device-rich' (rendered on the device), or a
 packed pyramid store (``tools/prepack_dataset.py --resolutions``, or
 ``data.write_pyramid``): each phase reads its ``r{res:04d}/`` member, held on
@@ -120,7 +120,8 @@ def ladder_config(args, mesh=None) -> LadderConfig:
         fused_from_resolution=args.fused_from,
         remat_from_resolution=args.remat_from, s2d_from_resolution=args.s2d_from,
         device=args.device,
-        mesh=mesh, trace_steps=args.trace_steps)
+        mesh=mesh, trace_steps=args.trace_steps, curves=args.curves,
+        tensorboard=args.tensorboard)
     cfg.batch_by_res.update(parse_batch_by_res(args.batch_by_res))
     return cfg
 
@@ -139,13 +140,11 @@ def source_factory(args, mesh=None):
     elif args.data in SYNTHETIC:
         def make(res: int, batch: int):
             # rendered at the phase's own resolution, not downsampled from
-            # the top one; on a mesh by one worker, whose batches come in a
-            # fixed order, so every rank cuts its rows from the same global
-            # batch (two workers' batches arrive in either order)
+            # the top one; the workers' batches come in a fixed order, so on
+            # a mesh every rank cuts its rows from the same global batch
             return data.ThreadedSource(data.FakeImages(
                 batch_size=batch, image_size=res, num_classes=1, seed=args.seed,
-                style="rich" if args.data == "fake-rich" else "blobs"),
-                num_workers=1 if mesh is not None else 2)
+                style="rich" if args.data == "fake-rich" else "blobs"))
     elif not os.path.isdir(args.data):
         raise FileNotFoundError(f"--data {args.data!r}: no such directory")
     else:

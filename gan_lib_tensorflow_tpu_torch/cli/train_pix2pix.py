@@ -40,10 +40,11 @@ import torch
 
 from .. import data
 from ..models import pix2pix
+from ..parallel import is_writer
 from ..train import (CheckpointManager, LoopConfig, create_state,
                      make_train_step, train_loop)
 from ..train.export import write_serving_bundle
-from ..utils import save_image_grid, write_gallery
+from ..utils import ScalarLogger, save_image_grid, write_gallery
 from . import common
 
 SYNTHETIC = ("auto", "fake", "fake-det", "device-fake", "device-det")
@@ -133,18 +134,25 @@ def train(args, g, spec, state, ckpt):
     fixed = _fixed_pair(args, source, device)
     translator = pix2pix.make_translator(g)
 
+    logger = ScalarLogger(args.out_dir if is_writer() else None, curves=args.curves,
+                          tensorboard=args.tensorboard)
+
     def sample_fn(st, it: int) -> None:
         out = translator(fixed["input"], torch.Generator(device=device).manual_seed(0))
         trip = torch.cat([fixed["input"], out, fixed["target"]], dim=2)
         save_image_grid(trip.cpu().numpy(), os.path.join(args.out_dir, "samples",
                                                          f"{it:06d}.png"), rows=len(trip))
+        # the reference's TensorBoard images of the fixed triple (train_pix2pix.py:170-173)
+        for tag, images in (("inputs", fixed["input"]), ("outputs", out),
+                            ("targets", fixed["target"])):
+            logger.log_images(it, tag, images.cpu().numpy())
 
     cfg = LoopConfig(total_steps=args.steps, log_every=args.log_every,
                      sample_every=args.sample_every, checkpoint_every=args.ckpt_every,
                      out_dir=args.out_dir, fault_inject_step=args.fault_inject_step,
                      trace_steps=args.trace_steps)
     return train_loop(state, make_train_step(spec), source, cfg, sample_fn=sample_fn,
-                      ckpt=ckpt, n_micro=spec.n_critic)
+                      ckpt=ckpt, logger=logger, n_micro=spec.n_critic)
 
 
 def test(args, g, state) -> dict:

@@ -139,7 +139,8 @@ def main(argv=None):
                      checkpoint_every=args.ckpt_every,
                      eval_every=args.eval_every, out_dir=args.out_dir,
                      fault_inject_step=args.fault_inject_step,
-                     trace_steps=args.trace_steps)
+                     trace_steps=args.trace_steps, curves=args.curves,
+                     tensorboard=args.tensorboard)
     ckpt = CheckpointManager(os.path.join(args.out_dir, "ckpt"))
     try:
         return train_loop(state, make_train_step(spec), source, cfg,

@@ -6,9 +6,11 @@ checkpoints and auto-resume under --out-dir, sample grids.
 
 --data: a packed store of 128^2 labelled images (held on the card when it
 fits --device-cache-gb, else streamed as uint8), a downsampled-ImageNet npz
-file or a directory of them (streamed), or 'fake'/'auto' (synthetic class
-blobs rendered on the card). Image-folder datasets, which the reference
-decodes with Pillow, are not read here: pack them first.
+file or a directory of them (streamed), 'fake'/'auto' and 'fake-rich'
+(synthetic class blobs rendered on the host; at 5 x 64 images of 128^2 a
+step, the host renderer is slow) or 'device-fake'/'device-rich' (rendered
+on the device). Image-folder datasets, which the reference decodes with
+Pillow, are not read here: pack them first.
 
 Usage: python -m gan_lib_tensorflow_tpu_torch.cli.train_sngan_imagenet \\
            --data runs/imagenet128_store --steps 450000 --out-dir runs/imagenet
@@ -76,7 +78,7 @@ def _has_npz(path: str) -> bool:
 
 def image_source(args, n_micro: int, mesh=None):
     """Resolve --data (see the module docstring); a path never falls back."""
-    if args.data not in ("auto", "fake", "cifar10"):
+    if args.data not in ("auto", *common.SYNTHETIC):
         if not os.path.exists(args.data):
             raise FileNotFoundError(f"--data {args.data!r}: no such path")
         if args.data.endswith(".npz") or _has_npz(args.data):
@@ -88,7 +90,7 @@ def image_source(args, n_micro: int, mesh=None):
             raise ValueError(f"--data {args.data}: neither a packed store nor npz "
                              f"files; image folders are read by Pillow, which this "
                              f"package does not use: pack them first")
-    # 'auto' and 'fake' render class blobs on the device at 128^2
+    # 'auto' is 'fake' at 128^2, as in the reference
     return common.image_source(args, args.batch_size, IMAGE_SIZE, args.num_classes,
                                n_micro=n_micro, mesh=mesh)
 
@@ -112,7 +114,8 @@ def main(argv=None):
                      sample_every=args.sample_every,
                      checkpoint_every=args.ckpt_every, out_dir=args.out_dir,
                      fault_inject_step=args.fault_inject_step,
-                     trace_steps=args.trace_steps)
+                     trace_steps=args.trace_steps, curves=args.curves,
+                     tensorboard=args.tensorboard)
     ckpt = CheckpointManager(os.path.join(args.out_dir, "ckpt"))
     try:
         return train_loop(state, make_train_step(spec), source, cfg,

@@ -243,14 +243,17 @@ def _named_tensors(model: nn.Module) -> Dict[str, torch.Tensor]:
     return dict(model.state_dict(keep_vars=True))
 
 
-def param_paths(model: Optional[InceptionV3] = None) -> List[Tuple[str, Tuple[int, ...]]]:
+def param_paths(model: Optional[InceptionV3] = None,
+                sort: bool = True) -> List[Tuple[str, Tuple[int, ...]]]:
     """The npz keys and flax-layout shapes ``load_params_npz`` expects, in
-    the reference's order (its flax paths, sorted)."""
+    the reference's order (its flax paths, sorted), or with ``sort=False``
+    in the order the modules are created, which is the order flax creates
+    the reference's (what keras's layer numbering follows)."""
     if model is None:
         with torch.device("meta"):
             model = InceptionV3()
     out = [(_flax_path(n), _flax_shape(t)) for n, t in _named_tensors(model).items()]
-    return sorted(out, key=lambda kv: tuple(kv[0].split("/")))
+    return sorted(out, key=lambda kv: tuple(kv[0].split("/"))) if sort else out
 
 
 def load_params_npz(path: str, model: InceptionV3) -> None:

@@ -4,8 +4,8 @@ and the periodic log, sample, eval and checkpoint, in the reference's order.
 A source with ``yields_stacks`` (on-device sources) is iterated as it is;
 any other (host numpy batches) is stacked into ``[n_micro, B, ...]`` and
 copied to the card by ``prefetch_to_device``. ``trace_steps`` captures a
-``torch.profiler`` trace (``utils/profiler.py``). Curves and TensorBoard are
-not ported.
+``torch.profiler`` trace (``utils/profiler.py``). ``curves`` and
+``tensorboard`` go to the ``ScalarLogger`` the loop builds.
 
 On a mesh (``state.mesh``) every rank steps on its rows of each batch;
 rank 0 logs, draws the sample grids and writes the checkpoints (every rank
@@ -40,6 +40,8 @@ class LoopConfig:
     checkpoint_every: int = 5000
     eval_every: int = 0              # 0 = no periodic eval
     out_dir: Optional[str] = None
+    curves: bool = False             # a curve PNG per metric under out_dir
+    tensorboard: bool = False        # TensorBoard scalars under out_dir/tb
     fault_inject_step: int = 0       # raise after this step (resume testing)
     # trace this many steps with torch.profiler, from the 10th step of the
     # run; as in the reference (loop.py:160-170, 196-198) the window ends
@@ -152,7 +154,8 @@ def train_loop(state, step_fn: Callable, source: Iterable, config: LoopConfig,
     an exception's way included. ``n_micro`` is the stack depth a host
     source's batches are grouped into (the spec's n_critic)."""
     writer = is_writer()
-    logger = logger or ScalarLogger(config.out_dir if writer else None)
+    logger = logger or ScalarLogger(config.out_dir if writer else None,
+                                    curves=config.curves, tensorboard=config.tensorboard)
     if ckpt is not None and ckpt.restore_latest(state) is not None and writer:
         print(f"resumed from step {state.step}", flush=True)
     start_step = state.step

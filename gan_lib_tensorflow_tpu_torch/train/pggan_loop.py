@@ -73,6 +73,9 @@ class LadderConfig:
     mesh: Optional[Any] = None
     # torch.profiler trace of this many (+ 1) steps from each phase's 10th
     trace_steps: int = 0
+    # each phase's curve PNGs and TensorBoard scalars (LoopConfig's)
+    curves: bool = False
+    tensorboard: bool = False
 
 
 def resolutions(cfg: LadderConfig) -> Iterator[int]:
@@ -156,7 +159,8 @@ def train_pggan_ladder(
             loop_cfg = LoopConfig(total_steps=ph.steps, log_every=cfg.log_every,
                                   sample_every=cfg.sample_every,
                                   checkpoint_every=cfg.checkpoint_every,
-                                  out_dir=phase_dir, trace_steps=cfg.trace_steps)
+                                  out_dir=phase_dir, trace_steps=cfg.trace_steps,
+                                  curves=cfg.curves, tensorboard=cfg.tensorboard)
             ckpt = (CheckpointManager(os.path.join(phase_dir, "ckpt"))
                     if phase_dir else None)
             try:

@@ -87,18 +87,18 @@ def build_step(model: str, num_classes: int = 0, data: str = "device-fake",
 
     flags = ["--device", device, *extra]
     if model == "sngan":
-        args = train_sngan.parse_args(["--data", "fake", "--steps", "100000",
+        args = train_sngan.parse_args(["--data", "device-fake", "--steps", "100000",
                                        "--num-classes", str(num_classes), *flags])
         _, _, spec, state = train_sngan.build(args)
         return spec, state, iter(common.image_source(args, args.batch_size, 32, 10,
                                                      n_micro=spec.n_critic))
     if model == "sngan_imagenet":
-        args = train_sngan_imagenet.parse_args(["--data", "fake", *flags])
+        args = train_sngan_imagenet.parse_args(["--data", "device-fake", *flags])
         _, _, spec, state = train_sngan_imagenet.build(args)
         return spec, state, iter(common.image_source(args, args.batch_size, 128,
                                                      args.num_classes, n_micro=spec.n_critic))
     if model == "acgan":
-        args = train_acgan.parse_args(["--data", "fake", *flags])
+        args = train_acgan.parse_args(["--data", "device-fake", *flags])
         g, _, spec, state = train_acgan.build(args)
         return spec, state, iter(common.image_source(args, args.batch_size, 32, g.num_classes,
                                                      n_micro=spec.n_critic))

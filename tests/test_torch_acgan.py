@@ -335,7 +335,7 @@ def test_step_g_running_stats_advance_once(stepped):
 # ---- the CLIs on the CPU
 
 
-CPU_ARGS = ["--device", "cpu", "--data", "fake", "--batch-size", "4",
+CPU_ARGS = ["--device", "cpu", "--data", "device-fake", "--batch-size", "4",
             "--compute-dtype", "fp32", "--log-every", "1", "--sample-every", "1000"]
 
 

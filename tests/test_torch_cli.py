@@ -19,7 +19,7 @@ from gan_lib_tensorflow_tpu_torch.data import DeviceFakeImages
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "gan_lib_tensorflow_tpu_torch")
-CPU_ARGS = ["--device", "cpu", "--data", "fake", "--steps", "1",
+CPU_ARGS = ["--device", "cpu", "--data", "device-fake", "--steps", "1",
             "--n-critic", "1", "--batch-size", "4"]
 
 

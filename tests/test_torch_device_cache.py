@@ -152,7 +152,8 @@ def test_image_source_resolves_the_data_vocabulary(tmp_path, monkeypatch, capsys
     monkeypatch.chdir(tmp_path)
     monkeypatch.delenv("GANTPU_DATA_DIR", raising=False)
     src = common.image_source(_args(data="auto"), 4, 32, 10, n_micro=2)
-    assert isinstance(src, data.DeviceFakeImages)
+    # the reference's fallback: host blobs behind ThreadedSource
+    assert isinstance(src, data.ThreadedSource) and isinstance(src.source, data.FakeImages)
     assert "CIFAR-10 not found" in capsys.readouterr().out
     with pytest.raises(FileNotFoundError):
         common.image_source(_args(data="cifar10"), 4, 32, 10)

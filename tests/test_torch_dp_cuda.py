@@ -90,7 +90,7 @@ def test_nccl_one_rank_group(card, tmp_path):
     group, NCCL (the rank has a card of its own)."""
     proc = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-         "1", "-m", "gan_lib_tensorflow_tpu_torch.cli.train_sngan", "--data", "fake",
+         "1", "-m", "gan_lib_tensorflow_tpu_torch.cli.train_sngan", "--data", "device-fake",
          "--steps", "2", "--batch-size", "8", "--n-critic", "1", "--log-every", "1",
          "--out-dir", str(tmp_path / "run")],
         cwd=REPO, capture_output=True, text=True, timeout=300)

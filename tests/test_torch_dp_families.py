@@ -323,7 +323,7 @@ def test_checkpoint_written_at_two_ranks_restores_at_one_and_at_two(tmp_path):
 PGGAN_ARGV = ["--device", "cpu", "--data", "device-fake", "--final-resolution", "8",
               "--width-mul", "0.015625", "--z-dim", "8", "--batch-by-res", "4:4,8:4",
               "--steps-per-phase", "2", "--compute-dtype", "fp32", "--log-every", "1"]
-SNGAN_ARGV = ["--device", "cpu", "--data", "fake", "--batch-size", "2", "--n-critic", "1",
+SNGAN_ARGV = ["--device", "cpu", "--data", "device-fake", "--batch-size", "2", "--n-critic", "1",
               "--steps", "2", "--compute-dtype", "fp32", "--log-every", "1"]
 
 
@@ -387,7 +387,7 @@ def _tiny_clis():
     return train_sngan, evaluate
 
 
-TRAIN_EVAL = ["--device", "cpu", "--data", "fake", "--steps", "4", "--n-critic", "2",
+TRAIN_EVAL = ["--device", "cpu", "--data", "device-fake", "--steps", "4", "--n-critic", "2",
               "--batch-size", "4", "--eval-every", "2", "--eval-samples", "200",
               "--log-every", "1", "--compute-dtype", "fp32"]
 EVALUATE = ["--n-samples", "210", "--batch-size", "100", "--n-real", "200", "--data", "fake",

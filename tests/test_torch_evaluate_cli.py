@@ -44,7 +44,7 @@ def tiny(monkeypatch):
 def test_train_sample_evaluate_on_cpu(tiny, tmp_path, capsys):
     out = tmp_path / "run"
     state = train_sngan.main([
-        "--device", "cpu", "--data", "fake", "--steps", "4", "--n-critic", "2",
+        "--device", "cpu", "--data", "device-fake", "--steps", "4", "--n-critic", "2",
         "--batch-size", "4", "--out-dir", str(out), "--ckpt-every", "2",
         "--sample-every", "2", "--eval-every", "2", "--eval-samples", "200",
         "--log-every", "1"])

@@ -209,8 +209,8 @@ def test_host_synthetic_choices(choice, style):
 
 def test_host_synthetic_source_is_one_ordered_stream_on_a_mesh():
     """On a mesh every rank cuts its rows from the host renderer's batches,
-    so they come from one worker in a fixed order; without one, two workers
-    render in either order."""
+    so they come in a fixed order: two workers taken in turn, with a mesh
+    and without one."""
     args = train_pggan.parse_args(TINY + ["--data", "fake", "--final-resolution", "16"])
     assert train_pggan.source_factory(args)(8, 4).num_workers == 2
     make = train_pggan.source_factory(args, mesh=object())
@@ -218,7 +218,7 @@ def test_host_synthetic_source_is_one_ordered_stream_on_a_mesh():
     for _ in range(2):
         it = iter(make(8, 4))
         runs.append(np.stack([next(it)["image"] for _ in range(6)]))
-    assert make(8, 4).num_workers == 1
+    assert make(8, 4).num_workers == 2
     np.testing.assert_array_equal(runs[0], runs[1])
 
 

@@ -234,7 +234,7 @@ def test_step_ema(stepped):
 
 def test_train_sample_evaluate_num_classes_10(tmp_path, monkeypatch):
     out = tmp_path / "run"
-    state = train_sngan.main(["--device", "cpu", "--data", "fake", "--steps", "1",
+    state = train_sngan.main(["--device", "cpu", "--data", "device-fake", "--steps", "1",
                               "--n-critic", "1", "--batch-size", "4", "--num-classes", "10",
                               "--sample-every", "1000", "--out-dir", str(out)])
     assert state.step == 1 and len(state.d.sn_layers) == 12
