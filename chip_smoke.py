@@ -6,8 +6,9 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (each prints its own lines; any failure exits non-zero before the
 final line):
   1. device: torch's name for the card, and nvidia-smi's name and power limit
-  2. build: compile both hand-written kernels (nvcc, sm_90a) from csrc/, one
-     nvcc process per source, started together
+  2. build: compile both hand-written kernels (nvcc, sm_90a) and the image
+     decoder (the host's C++ compiler) from csrc/, one compiler process per
+     source, started together
   3. power-iteration kernel vs plain: the batched power-iteration kernel
      against its plain PyTorch version on the card (sigma, u', v and
      d sigma / dW; rtol 1e-4, float32 with TF32 off), at the CIFAR-D,
@@ -193,13 +194,40 @@ final line):
      words through ``ThreadedSource``), the last with ``--curves`` (PNGs
      read back), ``--tensorboard`` (its note, and the run goes on) and
      ``--compile-cache`` (its note)
+ 18. image folders, read by the hand-written decoder (``csrc/imgcodec.cpp``,
+     built in phase 2 with the host's C++ compiler, and ``data/codec.py``):
+     (a) every committed fixture (``tests/torch_fixtures/images/``: baseline
+     and progressive JPEGs, 4:2:0, 4:2:2 with restart markers, 4:4:4 of odd
+     size, grey; RGBA, palette and Adam7 PNGs) decoded, center-cropped and
+     resized at the loaders' sizes, each uint8 array's sha256 equal to the
+     manifest that Pillow wrote (a mismatch names the file and its
+     differing rows); decode images/s per format on one host thread; (b)
+     pix2pix at full width (U-Net 256^2, 30x30 PatchGAN, batch 1, bf16) for
+     6 steps from the folder of combined A|B JPEGs (``PairedImageFolder``,
+     two host workers), ``--mode test`` over it, and 6 steps from its
+     ``--paired`` store held on the card: ms/step of both; (c)
+     SNGAN-projection ImageNet-128 at full width for 6 steps from a folder
+     of two classes (fixture JPEGs and PNGs written here), 6 power-iteration
+     launches a step, ms/step with two host workers (the CLI) and one, and
+     the loader's images/s alone with each; (d) the PGGAN ladder 4^2 ->
+     256^2 at full width, 1 step a phase, from a flat folder (decoded at
+     256^2, box-downsampled per phase): 6 fade-in launches per transition
+     step, 0 per stabilize step; then the 1024^2 transition phase
+     (``build_phase``, batch 4) on a flat folder of 1024^2 PNGs against
+     ``device-fake`` reals, 4 timed steps each; (e) ``cli.evaluate --model
+     imagenet`` with the real moments from the class folder, and ``--model
+     pggan`` at 256^2 with SWD reals from the flat folder; (f)
+     ``tools/prepack_dataset`` on the fixtures (class folders, a flat
+     ``--resolutions`` pyramid, ``--paired``): each store's sha256 equal to
+     the reference tool's in the manifest
 
 The power iteration's ``launches`` in the kernels' record are those of
 phase 5's SNGAN run, phase 12's conditional SNGAN run, every run of
-phase 15 (each rank's and the one-rank runs') and the runs of phase 17's
-tools and ``--data`` words; the fade-in's are those of
-phase 6's ladder, phase 14's ladder (b) and the ladders and steps of phases
-15 and 16 (each rank's and the one-process runs').
+phase 15 (each rank's and the one-rank runs'), the runs of phase 17's
+tools and ``--data`` words, and phase 18's ImageNet-128 runs; the
+fade-in's are those of phase 6's ladder, phase 14's ladder (b), the ladders
+and steps of phases 15 and 16 (each rank's and the one-process runs') and
+phase 18's ladder and 1024^2 steps.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -280,6 +308,17 @@ FADEIN_SP_SHAPES = [(4, 3, 512, 1024), (4, 32, 256, 512), (2, 3, 512, 1024), (2,
 # the tools (phase 17): few timed steps each; the words of --data on train_sngan
 TOOL_TIMED = 3
 DATA_WORDS = ["fake", "fake-rich", "device-fake", "device-rich"]
+# image folders (phase 18): the committed fixtures and their manifest, which
+# tests/test_torch_image_folders.py writes with Pillow and the reference's
+# prepack tool; the folders written here: ImageNet-128's two classes of 48
+# files, the PGGAN ladder's 16 (its largest batch) and 8 at 1024^2
+FIXTURES = os.path.join("tests", "torch_fixtures", "images")
+FOLDER_STEPS, FOLDER_LOG = 6, 3
+FOLDER_CLASS_FILES, FOLDER_FLAT_FILES, FOLDER_1024_FILES = 48, 16, 8
+FOLDER_LADDER_RES = 256
+FOLDER_1024_TIMED = 6
+DEVICE_PREFETCH = 2  # prefetch_to_device's depth
+DECODE_SECONDS = 0.5  # per format, for its decode rate
 
 
 def nvidia_smi(fields: str) -> str:
@@ -2526,6 +2565,353 @@ def tools_on_the_card(card: str, tmp: str) -> int:
     return pi_total
 
 
+def scene_u8(h: int, w: int, seed: int):
+    """A synthetic image for the folders written here: gradients and discs,
+    uint8 [h, w, 3]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([x / w * 200 + 30, y / h * 180 + 40, (x + y) / (w + h) * 120 + 60], -1)
+    for _ in range(6):
+        cy, cx, r = rng.uniform(0, h), rng.uniform(0, w), rng.uniform(0.05, 0.3) * min(h, w)
+        img[(y - cy) ** 2 + (x - cx) ** 2 < r * r] = rng.uniform(0, 255, 3)
+    return img.astype(np.uint8)
+
+
+def image_folders(card: str, tmp: str) -> tuple:
+    """Phase 18, in the temporary directory ``tmp``. Returns the
+    power-iteration and fade-in launches of its runs."""
+    import hashlib
+    import shutil as sh
+
+    import numpy as np
+    import torch
+    from gan_lib_tensorflow_tpu_torch import data
+    from gan_lib_tensorflow_tpu_torch.cli import (evaluate, train_pggan, train_pix2pix,
+                                                  train_sngan_imagenet)
+    from gan_lib_tensorflow_tpu_torch.data import codec
+    from gan_lib_tensorflow_tpu_torch.data.packed import store_digest
+    from gan_lib_tensorflow_tpu_torch.ops import fadein as fd
+    from gan_lib_tensorflow_tpu_torch.ops import power_iteration as pi
+    from gan_lib_tensorflow_tpu_torch.tools import prepack_dataset
+    from gan_lib_tensorflow_tpu_torch.train import LoopConfig, make_train_step, pggan_loop, train_loop
+    from gan_lib_tensorflow_tpu_torch.train.loop import device_batches
+    from gan_lib_tensorflow_tpu_torch.train.pggan_loop import build_phase
+    from gan_lib_tensorflow_tpu_torch.utils.images import png_bytes
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), FIXTURES)
+    with open(os.path.join(root, "manifest.json")) as f:
+        manifest = json.load(f)
+    host = f"{card}; host: {os.cpu_count()} CPUs"
+    pi_total = fd_total = 0
+
+    def sha(a) -> str:
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    def write_png(path: str, img) -> None:
+        with open(path, "wb") as f:
+            f.write(png_bytes(img))
+
+    # (a) every fixture decoded, cropped and resized as Pillow does
+    bad = []
+    for rel, want in sorted(manifest["files"].items()):
+        path = os.path.join(root, rel)
+        rgb = codec.decode_rgb(path)
+        if list(rgb.shape) != want["shape"]:
+            bad.append(f"{rel}: shape {list(rgb.shape)}, Pillow's {want['shape']}")
+            continue
+        if sha(rgb) != want["rgb"]:
+            rows = [i for i in range(rgb.shape[0])
+                    if sha(rgb[i])[:8] != want["rows"][8 * i:8 * i + 8]]
+            bad.append(f"{rel}: {len(rows)} of {rgb.shape[0]} rows differ from Pillow's "
+                       f"decode (the first: {rows[:8]})")
+        for size, digest in want["square"].items():
+            if sha(codec.load_square(path, int(size))) != digest:
+                bad.append(f"{rel}: the center square resized to {size}^2 differs")
+        for size, digest in want.get("halves", {}).items():
+            if sha(np.concatenate(codec.load_halves(path, int(size)), axis=1)) != digest:
+                bad.append(f"{rel}: the halves resized to {size}^2 differ")
+    for line in bad:
+        print(f"MISMATCH {line}")
+    check(not bad, f"{len(bad)} fixture decodes differ from the reference's")
+    print(f"decoder: {len(manifest['files'])} fixtures decoded as Pillow "
+          f"{manifest['pillow']} / libjpeg-turbo {manifest['libjpeg_turbo']} decodes them, "
+          "with their center squares resized for the loaders and the pix2pix halves "
+          "(sha256 of every uint8 array equal)")
+    kinds = {}
+    for rel in manifest["files"]:
+        with open(os.path.join(root, rel), "rb") as f:
+            head = f.read()
+        kind = ("PNG" if rel.endswith(".png") else
+                "JPEG progressive" if b"\xff\xc2" in head else "JPEG baseline")
+        kinds.setdefault(kind, []).append(os.path.join(root, rel))
+    for kind, paths in sorted(kinds.items()):
+        n = pixels = 0
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < DECODE_SECONDS:
+            for p in paths:
+                pixels += codec.decode_rgb(p).size // 3
+                n += 1
+        dt = time.perf_counter() - t0
+        print(f"decode {kind} ({len(paths)} fixtures): {n / dt:.1f} images/s, "
+              f"{pixels / dt / 1e6:.2f} Mpixel/s, one thread  [{host}]")
+
+    # (b) pix2pix at full width from the folder of combined A|B JPEGs
+    combined = os.path.join(root, "combined")
+    run_args = ["--device", "cuda", "--compute-dtype", "bf16", "--log-every", str(FOLDER_LOG),
+                "--sample-every", "1000", "--steps", str(FOLDER_STEPS)]
+    pi.launches = fd.launches = 0
+    folder_run = os.path.join(tmp, "pix2pix_folder")
+    state = train_pix2pix.main(run_args + ["--data", combined, "--out-dir", folder_run,
+                                           "--ckpt-every", str(FOLDER_STEPS)])
+    folder_sps = last_sec_per_step(folder_run)
+    check(state.step == FOLDER_STEPS, f"pix2pix from the folder ended at step {state.step}")
+    del state
+    metrics = train_pix2pix.main(["--device", "cuda", "--mode", "test", "--data", combined,
+                                  "--out-dir", folder_run])
+    n_files = len(os.listdir(combined))
+    check(metrics["n_examples"] == n_files and math.isfinite(metrics["test_l1"])
+          and len(os.listdir(os.path.join(folder_run, "images"))) == 3 * n_files,
+          f"pix2pix --mode test over the folder: {metrics}")
+    store = os.path.join(tmp, "pix2pix_store")
+    prepack_dataset.main(["--src", combined, "--out", store, "--size", "286", "--paired"])
+    store_run = os.path.join(tmp, "pix2pix_store_run")
+    train_pix2pix.main(run_args + ["--data", store, "--out-dir", store_run,
+                                   "--ckpt-every", "1000"])
+    store_sps = last_sec_per_step(store_run)
+    check(pi.launches == 0 and fd.launches == 0, "pix2pix launched a kernel")
+    print(f"pix2pix at full width (U-Net 256^2, PatchGAN 30x30, batch 1, bf16) from "
+          f"{n_files} combined JPEGs: {1e3 * folder_sps:.2f} ms/step from the folder "
+          f"(2 host workers decoding and jittering), {1e3 * store_sps:.2f} ms/step from the "
+          f"--paired store of the same images held on the card (steps "
+          f"{FOLDER_STEPS - FOLDER_LOG + 1}-{FOLDER_STEPS}); --mode test over the folder: "
+          f"{metrics['n_examples']} examples, test L1 {metrics['test_l1']:.4f}  [{host}]")
+
+    # (c) SNGAN-projection ImageNet-128 at full width from a class folder
+    classes = os.path.join(tmp, "imagenet_classes")
+    jpegs = sorted(os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs
+                   if f.endswith(".jpg"))
+    for c, wnid in enumerate(("n01440764", "n01443537")):
+        os.makedirs(os.path.join(classes, wnid))
+        for i in range(FOLDER_CLASS_FILES):
+            name = os.path.join(classes, wnid, f"{wnid}_{i:04d}")
+            if i % 2:
+                write_png(name + ".png", scene_u8(120 + 9 * (i % 5), 160 + 7 * (i % 7), i + c))
+            else:
+                sh.copy(jpegs[(i // 2 + c) % len(jpegs)], name + ".JPEG")
+    rates = {}
+    for workers in (1, 2):
+        src = iter(data.ThreadedSource(data.ImageFolderByClass(
+            classes, batch_size=BATCH, image_size=128), num_workers=workers))
+        next(src)
+        t0 = time.perf_counter()
+        for _ in range(N_CRITIC):
+            next(src)
+        rates[workers] = N_CRITIC * BATCH / (time.perf_counter() - t0)
+        src.close()
+    im_run = os.path.join(tmp, "imagenet_folder")
+    pi.launches = 0
+    im_args = ["--data", classes, "--device", "cuda", "--compute-dtype", "bf16",
+               "--log-every", str(FOLDER_LOG), "--sample-every", "1000"]
+    state = train_sngan_imagenet.main(im_args + ["--steps", str(FOLDER_STEPS), "--out-dir",
+                                                 im_run, "--ckpt-every", str(FOLDER_STEPS)])
+    torch.cuda.synchronize()
+    check(state.step == FOLDER_STEPS and pi.launches == (N_CRITIC + 1) * FOLDER_STEPS,
+          f"power-iteration launches {pi.launches} in {state.step} steps, want 6 per step")
+    pi_total += pi.launches
+    two_sps = last_sec_per_step(im_run)
+    del state
+    # the same path behind one worker, through the CLI's own build and loop
+    args = train_sngan_imagenet.parse_args(im_args)
+    _, _, spec, state = train_sngan_imagenet.build(args)
+    one = data.ThreadedSource(data.ImageFolderByClass(classes, batch_size=BATCH,
+                                                      image_size=128), num_workers=1)
+    step_fn = make_train_step(spec)
+    pi.launches = 0
+    train_loop(state, step_fn, one, LoopConfig(1, 1), n_micro=spec.n_critic)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_loop(state, step_fn, one, LoopConfig(1 + FOLDER_LOG, FOLDER_LOG),
+               n_micro=spec.n_critic)
+    torch.cuda.synchronize()
+    one_sps = (time.perf_counter() - t0) / FOLDER_LOG
+    check(pi.launches == (N_CRITIC + 1) * (1 + FOLDER_LOG),
+          f"power-iteration launches {pi.launches} behind one worker")
+    pi_total += pi.launches
+    del state, spec, step_fn
+    print(f"SNGAN-projection ImageNet-128 at full width from a class folder (2 classes, "
+          f"{2 * FOLDER_CLASS_FILES} JPEGs and PNGs, {N_CRITIC} x {BATCH} decodes a step): "
+          f"{1e3 * two_sps:.2f} ms/step with 2 host workers, {1e3 * one_sps:.2f} ms/step with "
+          f"1; the loader alone {rates[2]:.1f} images/s with 2 workers, {rates[1]:.1f} with 1 "
+          f"(decode, center crop, resize to 128^2, normalize); 6 power-iteration launches a "
+          f"step  [{host}]")
+
+    # (d) the PGGAN ladder at full width (Karras channels) from a flat folder
+    flat = os.path.join(tmp, "pggan_flat")
+    os.makedirs(flat)
+    singles = sorted(os.listdir(os.path.join(root, "single")))
+    for i in range(FOLDER_FLAT_FILES):
+        if i < len(singles):
+            sh.copy(os.path.join(root, "single", singles[i]), os.path.join(flat, singles[i]))
+        else:
+            write_png(os.path.join(flat, f"face_{i:03d}.png"),
+                      scene_u8(300 + 10 * (i % 3), 300, 100 + i))
+    ladder_run = os.path.join(tmp, "pggan_folder")
+    per_phase, logs = [], []
+    inner_ladder, inner_sampler = train_pggan.train_pggan_ladder, pggan_loop._phase_sampler
+
+    def hook(when, res, name, st):
+        if when == "start":
+            per_phase.append({"res": res, "name": name, "fd": fd.launches, "grid": 0,
+                              "t0": time.perf_counter()})
+        else:
+            torch.cuda.synchronize()
+            rec = per_phase[-1]
+            rec["fd"] = fd.launches - rec["fd"]
+            rec["s"] = time.perf_counter() - rec.pop("t0")
+
+    def ladder(cfg, factory, **kw):
+        def recording(res, batch):
+            src = factory(res, batch)
+            per_phase[-1]["source"] = src
+            return src
+        return inner_ladder(cfg, recording, phase_hook=hook,
+                            log_fn=lambda it, m: logs.append(m))
+
+    def counting_sampler(cfg, ph, phase_dir):
+        fn = inner_sampler(cfg, ph, phase_dir)
+
+        def grid(state, it):
+            before = fd.launches
+            fn(state, it)
+            per_phase[-1]["grid"] += fd.launches - before
+        return grid
+
+    train_pggan.train_pggan_ladder, pggan_loop._phase_sampler = ladder, counting_sampler
+    fd.launches = pi.launches = 0
+    t0 = time.perf_counter()
+    try:
+        final = train_pggan.main([
+            "--data", flat, "--device", "cuda", "--final-resolution", str(FOLDER_LADDER_RES),
+            "--steps-per-phase", "1", "--log-every", "1", "--compute-dtype", "bf16",
+            "--ckpt-every", "1", "--sample-every", "1000", "--out-dir", ladder_run])
+        torch.cuda.synchronize()
+    finally:
+        train_pggan.train_pggan_ladder, pggan_loop._phase_sampler = inner_ladder, inner_sampler
+    ladder_s = time.perf_counter() - t0
+    n_phases = 2 * int(math.log2(FOLDER_LADDER_RES)) - 3
+    check(len(per_phase) == n_phases and final.step == 1 and final.alpha == 1.0
+          and pi.launches == 0, f"{len(per_phase)} phases, want {n_phases}")
+    for rec in per_phase:
+        trans = rec["name"] == "transition"
+        steps_fd = rec["fd"] - rec["grid"]
+        src = rec["source"]
+        check(isinstance(src, data.ThreadedSource)
+              and isinstance(src.source, data.MultiResolution)
+              and src.source.base.image_size == FOLDER_LADDER_RES
+              and src.source.resolution == rec["res"],
+              f"{rec['res']}x{rec['res']} {rec['name']} read {src}")
+        check(steps_fd == (6 if trans else 0),
+              f"{rec['res']}x{rec['res']} {rec['name']}: {steps_fd} fade-in launches in its step")
+    step_launches = sum(rec["fd"] - rec["grid"] for rec in per_phase)
+    fd_total += fd.launches
+    check(len(logs) == n_phases and all(math.isfinite(v) for m in logs for v in m.values()),
+          "non-finite ladder metrics")
+    print(f"PGGAN ladder 4x4 -> {FOLDER_LADDER_RES}x{FOLDER_LADDER_RES} at full width (bf16, "
+          f"1 step a phase, checkpoints) from a flat folder of {FOLDER_FLAT_FILES} JPEGs and "
+          f"PNGs decoded at {FOLDER_LADDER_RES}^2 and box-downsampled per phase: "
+          f"{n_phases} phases in {ladder_s:.1f} s, fade-in launches {fd.launches} "
+          f"({step_launches} in the steps: 6 per transition step, 0 per stabilize step; "
+          f"{fd.launches - step_launches} in the sample grids)  [{host}]")
+    del final
+
+    flat1024 = os.path.join(tmp, "pggan_flat1024")
+    os.makedirs(flat1024)
+    for i in range(FOLDER_1024_FILES):
+        write_png(os.path.join(flat1024, f"hq_{i:03d}.png"), scene_u8(1024, 1024, 200 + i))
+    top = {}
+    words = {"folder": flat1024, "device-fake": "device-fake"}
+    cfg = train_pggan.ladder_config(train_pggan.parse_args(
+        ["--data", flat1024, "--device", "cuda", "--compute-dtype", "bf16"]))
+    cfg.out_dir = None
+    ph = build_phase(cfg, 1024, "transition")
+    pg_step = make_train_step(ph.spec)
+    fd.launches = 0
+    warm = None
+    for word, data_arg in words.items():
+        args = train_pggan.parse_args(["--data", data_arg, "--device", "cuda",
+                                       "--compute-dtype", "bf16"])
+        raw = train_pggan.source_factory(args)(1024, ph.batch)
+        if word == "folder":
+            # the loader alone, its first batch untimed; then the steps warm
+            # up past every batch that the workers' queues, the batches in
+            # their hands and the device prefetch can hold, so the timed
+            # steps read batches decoded while the card trained
+            loader = iter(raw)
+            next(loader)
+            t0 = time.perf_counter()
+            for _ in range(FOLDER_1024_TIMED):
+                next(loader)
+            loader_s = (time.perf_counter() - t0) / FOLDER_1024_TIMED
+            loader_rate = ph.batch / loader_s
+            loader.close()
+            warm = raw.depth + raw.num_workers + DEVICE_PREFETCH + 1
+        source = device_batches(raw, 1, "cuda")
+        for i in range(warm):
+            ph.state.alpha = ph.alpha_fn(i)
+            pg_step(ph.state, next(source))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(warm, warm + FOLDER_1024_TIMED):
+            ph.state.alpha = ph.alpha_fn(i)
+            metrics = pg_step(ph.state, next(source))
+        torch.cuda.synchronize()
+        top[word] = (time.perf_counter() - t0) / FOLDER_1024_TIMED
+        check(all(math.isfinite(float(v)) for v in metrics.values()),
+              f"non-finite 1024^2 metrics from {word}")
+        del source  # its generators close, and the host workers stop
+    check(fd.launches == 6 * 2 * (warm + FOLDER_1024_TIMED),
+          f"{fd.launches} fade-in launches in the 1024^2 transition steps")
+    fd_total += fd.launches
+    del ph, pg_step
+    print(f"PGGAN 1024x1024 transition phase (build_phase, batch {cfg.batch_by_res[1024]}, "
+          f"bf16, {FOLDER_1024_TIMED} steps timed after {warm} warm-up steps): "
+          f"{1e3 * top['folder']:.2f} ms/step from a flat folder of {FOLDER_1024_FILES} 1024^2 "
+          f"PNGs (2 host workers), {1e3 * top['device-fake']:.2f} ms/step on device-fake "
+          f"reals; the loader alone {1e3 * loader_s:.2f} ms/batch ({loader_rate:.1f} "
+          f"images/s); 6 fade-in launches a step  [{host}]")
+
+    # (e) cli.evaluate over the folders
+    res = evaluate.main(["--model", "imagenet", "--device", "cuda", "--ckpt-dir",
+                         os.path.join(im_run, "ckpt"), "--data", classes, "--n-samples",
+                         "500", "--n-real", str(4 * BATCH), "--batch-size", str(BATCH)])
+    check(res["real_source"] == classes and all(math.isfinite(res[k]) for k in
+                                                ("fid", "inception_score")),
+          f"cli.evaluate --model imagenet over the class folder: {res}")
+    top_ckpt = os.path.join(ladder_run, f"{FOLDER_LADDER_RES}x{FOLDER_LADDER_RES}_stabilize",
+                            "ckpt")
+    pg = evaluate.main(["--model", "pggan", "--device", "cuda", "--ckpt-dir", top_ckpt,
+                        "--resolution", str(FOLDER_LADDER_RES), "--data", flat,
+                        "--n-samples", "160", "--swd-samples", "64", "--batch-size", "16"])
+    check(pg["swd_images"] == 64 and 0 <= pg["ms_ssim"] <= 1 and all(
+        math.isfinite(v) for k, v in pg.items() if k.startswith("swd_") and k != "swd_desc_dtype"),
+        f"cli.evaluate --model pggan over the flat folder: {pg}")
+    print(f"cli.evaluate over folders: --model imagenet FID {res['fid']:.3f} (real moments "
+          f"from {4 * BATCH} class-folder images), --model pggan at {FOLDER_LADDER_RES}^2 "
+          f"SWD avg {pg['swd_avg']:.3f}, MS-SSIM {pg['ms_ssim']:.4f} ({pg['swd_images']} "
+          f"flat-folder reals)")
+
+    # (f) the prepack tool on the fixtures: the reference tool's stores
+    for name, spec in sorted(manifest["stores"].items()):
+        out = os.path.join(tmp, f"store_{name}")
+        prepack_dataset.main([a.format(root=root) for a in spec["argv"]] + ["--out", out])
+        check(store_digest(out) == spec["sha256"],
+              f"prepack {name}: store sha256 differs from the reference tool's")
+    print(f"tools/prepack_dataset on the fixtures: {', '.join(sorted(manifest['stores']))} "
+          "stores byte-equal to the reference tool's (sha256)")
+    return pi_total, fd_total
+
+
 def main() -> None:
     import torch
 
@@ -2534,6 +2920,7 @@ def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from gan_lib_tensorflow_tpu_torch.cli import common, train_pggan, train_sngan
+        from gan_lib_tensorflow_tpu_torch.data import codec
         from gan_lib_tensorflow_tpu_torch.models import pggan, sngan
         from gan_lib_tensorflow_tpu_torch.ops import fadein as fd
         from gan_lib_tensorflow_tpu_torch.ops import init_weights
@@ -2561,12 +2948,13 @@ def main() -> None:
 
     phase("2 build")
     t0 = time.perf_counter()
-    libraries = [pi.library, fd.library]
+    libraries = [pi.library, fd.library, codec.library]
     with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
         for fut in [pool.submit(lib.load) for lib in libraries]:
             fut.result()
     build_s = time.perf_counter() - t0
-    print(f"kernels build+load (parallel nvcc): {build_s:.2f} s")
+    print(f"kernels and the image decoder build+load (nvcc x2 and the host C++ compiler, "
+          f"in parallel): {build_s:.2f} s")
     for lib in libraries:
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line:
@@ -2892,12 +3280,21 @@ def main() -> None:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 17: {time.perf_counter() - t17:.1f} s  [{card}]")
 
+    phase("18 image folders: the hand-written decoder, and each family trained from a folder")
+    t18 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        folder_pi, folder_fd = image_folders(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 18: {time.perf_counter() - t18:.1f} s  [{card}]")
+
     print(json.dumps({"kernels": [{
         "name": "batched_power_iteration",
         "route": "cuda",
         "source": "gan_lib_tensorflow_tpu_torch/csrc/power_iteration.cu",
         "replaces": "gan_lib_tensorflow_tpu/ops/pallas_kernels.py:63",
-        "launches": main_launches + cond_launches + mr_pi + tools_pi,
+        "launches": main_launches + cond_launches + mr_pi + tools_pi + folder_pi,
         "max_abs_err": err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -2909,7 +3306,7 @@ def main() -> None:
         "route": "cuda",
         "source": "gan_lib_tensorflow_tpu_torch/csrc/fadein_blend.cu",
         "replaces": "gan_lib_tensorflow_tpu/ops/pallas_kernels.py:122",
-        "launches": ladder_launches + pyramid_launches + mr_fd + sp_fd,
+        "launches": ladder_launches + pyramid_launches + mr_fd + sp_fd + folder_fd,
         "max_abs_err": fade_err,
         "ms": fade["ms"],
         "plain_ms": fade["plain_ms"],

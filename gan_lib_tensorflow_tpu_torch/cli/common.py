@@ -127,18 +127,6 @@ def maybe_mesh(args) -> Optional[Mesh]:
     return mesh
 
 
-def refuse_image_folder(p: argparse.ArgumentParser, path: str, prepack_flag: str,
-                        members=()) -> None:
-    """Exit 2 through ``p.error`` when ``path`` is a directory that is no
-    packed store, and none of its ``members`` is one: image folders are
-    decoded with Pillow, which this package does not use."""
-    if os.path.isdir(path) and not any(
-            data.is_packed_dir(os.path.join(path, m)) for m in ("", *members)):
-        p.error(f"--data {path}: not a packed store; image folders are decoded "
-                "with Pillow, which this package does not use: pack it first with "
-                f"tools/prepack_dataset.py {prepack_flag}")
-
-
 def compute_dtype(args) -> Optional[torch.dtype]:
     return {"fp32": None, "bf16": torch.bfloat16}[args.compute_dtype]
 

@@ -5,8 +5,9 @@ when the checkpoint has them; a conditional G cycles its classes), IS over
 10 splits and FID against the real moments. ``--model pggan``: Karras's
 MS-SSIM diversity over generated pairs, and SWD per Laplacian-pyramid level
 against reals when --data resolves to them (a pyramid or single packed
-store of --resolution, or 'device-rich'/'device-fake' rendered on the card;
-'auto' gives MS-SSIM alone; an image folder is refused: pack it first).
+store of --resolution, a flat folder of images decoded by ``data/codec.py``
+at --resolution, or 'device-rich'/'device-fake' rendered on the card;
+'auto' gives MS-SSIM alone).
 
 Usage:
   python -m gan_lib_tensorflow_tpu_torch.cli.evaluate --model sngan \\
@@ -66,10 +67,11 @@ def parse_args(argv=None):
                         "and the model is 32^2, else 'fake'), 'cifar10', "
                         "'fake' / 'fake-rich' (synthetic blobs rendered on the "
                         "host), 'device-fake' / 'device-rich' (rendered on the "
-                        "device), or a PATH (packed store, or a CIFAR-10 "
-                        "directory at 32^2); "
-                        "for SWD (pggan): a pyramid or packed store, "
-                        "'device-rich' or 'device-fake'")
+                        "device), or a PATH (packed store, a CIFAR-10 "
+                        "directory at 32^2, or a folder of class "
+                        "subdirectories of images); "
+                        "for SWD (pggan): a pyramid or packed store, a flat "
+                        "folder of images, 'device-rich' or 'device-fake'")
     p.add_argument("--n-real", type=int, default=10_000)
     p.add_argument("--inception-weights", default=None)
     p.add_argument("--real-stats-npz", default=None,
@@ -91,11 +93,7 @@ def parse_args(argv=None):
                    help="torch device; without CUDA only 'cpu' runs")
     p.add_argument("--no-mesh", action="store_true",
                    help="one device, no mesh (refused under more than one rank)")
-    args = p.parse_args(argv)
-    if args.model == "pggan":
-        common.refuse_image_folder(p, args.data, "--resolutions",
-                                   [f"r{args.resolution:04d}"])
-    return args
+    return p.parse_args(argv)
 
 
 def main(argv=None) -> dict:
@@ -197,8 +195,10 @@ def real_image_batches(args, device, image_size: int):
     elif image_size == 32 and os.path.isfile(os.path.join(args.data, "data_batch_1")):
         src = data.Cifar10(batch_size=bs, data_dir=args.data, seed=args.seed)
     else:
-        raise FileNotFoundError(f"--data {args.data}: neither a packed store nor, at "
-                                f"32^2, a CIFAR-10 directory")
+        # class subdirectories of images, decoded on the host (reference
+        # evaluate.py:131-133)
+        src = data.ImageFolderByClass(args.data, batch_size=bs, image_size=image_size,
+                                      seed=args.seed)
     return host(src), args.data
 
 
@@ -274,9 +274,15 @@ def eval_pggan(args) -> dict:
 
     real = None
     if os.path.isdir(args.data):
-        store = data.open_pyramid(args.data, batch_size=bs, resolution=args.resolution,
-                                  seed=args.seed, wire_dtype="uint8")
-        real = (b["image"] for b in prefetch_to_device(iter(store), dev))
+        # a store or pyramid first; a folder without one is read as images
+        # (reference evaluate.py:239-250)
+        try:
+            src = data.open_pyramid(args.data, batch_size=bs, resolution=args.resolution,
+                                    seed=args.seed, wire_dtype="uint8")
+        except FileNotFoundError:
+            src = data.ImageFolderFlat(args.data, batch_size=bs,
+                                       image_size=args.resolution, seed=args.seed)
+        real = (b["image"] for b in prefetch_to_device(iter(src), dev))
     elif args.data in ("device-rich", "device-fake"):
         # reals rendered on the card at the eval's resolution: a 16,384-image
         # real side at 1024^2 would be a 51 GB store

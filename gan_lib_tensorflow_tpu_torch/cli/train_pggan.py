@@ -12,9 +12,12 @@ fixed order, so that every rank reads the same global batches), 'fake-rich' (the
 ``rich`` style), 'device-fake'/'device-rich' (rendered on the device), or a
 packed pyramid store (``tools/prepack_dataset.py --resolutions``, or
 ``data.write_pyramid``): each phase reads its ``r{res:04d}/`` member, held on
-the card when it fits --device-cache-gb, else streamed as uint8. Image
-folders, which the reference decodes with Pillow, are not read here: pack
-them first.
+the card when it fits --device-cache-gb, else streamed as uint8; or a flat
+folder of JPEG/PNG images (CelebA-HQ style): each phase decodes them on the
+host with ``data/codec.py`` at --final-resolution (center crop, bilinear
+resize) and box-downsamples them to its own resolution
+(``MultiResolution``), two ``ThreadedSource`` workers; pack large folders
+with ``tools/prepack_dataset --resolutions`` for the reference's rates.
 
 Usage: python -m gan_lib_tensorflow_tpu_torch.cli.train_pggan --data <pyramid> \\
            --out-dir runs/pggan [--remat-from 512]
@@ -57,8 +60,8 @@ def parse_batch_by_res(spec: str) -> dict:
 def parse_args(argv=None):
     p = common.base_parser(__doc__, data_help=(
         "each phase's reals: 'auto'/'fake' (blobs rendered on the host), "
-        "'fake-rich', 'device-fake'/'device-rich' (rendered on the device), or "
-        "a packed pyramid store"))
+        "'fake-rich', 'device-fake'/'device-rich' (rendered on the device), "
+        "a packed pyramid store, or a flat folder of images"))
     p.add_argument("--final-resolution", type=int, default=1024)
     p.add_argument("--images-per-phase", type=int, default=600_000)
     p.add_argument("--width-mul", type=float, default=1.0)
@@ -102,9 +105,6 @@ def parse_args(argv=None):
         p.error(f"--sp-shards {sp}: a power of two with --final-resolution "
                 f"{args.final_resolution} >= 4 * sp is needed, so that every sharded "
                 "level splits into even shards of 4 rows or more")
-    if args.data not in SYNTHETIC:
-        common.refuse_image_folder(p, args.data, "--resolutions",
-                                   [f"r{args.final_resolution:04d}"])
     return args
 
 
@@ -147,6 +147,16 @@ def source_factory(args, mesh=None):
                 style="rich" if args.data == "fake-rich" else "blobs"))
     elif not os.path.isdir(args.data):
         raise FileNotFoundError(f"--data {args.data!r}: no such directory")
+    elif not (data.is_packed_dir(args.data) or data.is_packed_dir(
+            os.path.join(args.data, f"r{args.final_resolution:04d}"))):
+        def make(res: int, batch: int):
+            # decoded at the final resolution, box-downsampled to the phase's
+            # (reference cli/train_pggan.py:123-132)
+            base = data.ImageFolderFlat(args.data, batch_size=batch,
+                                        image_size=args.final_resolution, seed=args.seed)
+            return data.ThreadedSource(data.MultiResolution(
+                base=base, batch_size=batch, max_resolution=args.final_resolution,
+                resolution=res))
     else:
         def make(res: int, batch: int):
             return data.packed_training_source(

@@ -13,16 +13,18 @@ with the reference's three modes:
 --data: 'auto'/'fake' (host-rendered synthetic pairs, the reference's numpy
 renderer), 'fake-det' (colors a function of geometry), 'device-fake' /
 'device-det' (the same pairs rendered on the device; train mode only, test
-mode renders them on the host), or a packed paired store
+mode renders them on the host), a packed paired store
 (``tools/prepack_dataset.py --paired``; held on the card when it fits
---device-cache-gb, else streamed). Image folders, which the reference decodes
-with Pillow, are not read here: pack them first.
+--device-cache-gb, else streamed), or a folder of combined A|B ``*.jpg`` /
+``*.png`` images (facades style): decoded on the host by the port's own
+JPEG/PNG decoder (``data/codec.py``) and jittered there as the reference
+does, two ``ThreadedSource`` workers in train mode.
 
 Usage:
   python -m gan_lib_tensorflow_tpu_torch.cli.train_pix2pix --data <store> \\
       --out-dir runs/facades
   python -m gan_lib_tensorflow_tpu_torch.cli.train_pix2pix --mode test \\
-      --data <store> --out-dir runs/facades
+      --data facades/val --out-dir runs/facades
   python -m gan_lib_tensorflow_tpu_torch.cli.train_pix2pix --mode export \\
       --out-dir runs/facades
   python -m gan_lib_tensorflow_tpu_torch.cli.train_pix2pix --device cpu \\
@@ -72,16 +74,15 @@ def parse_args(argv=None):
     if args.scale_size < args.image_size:
         p.error(f"--scale-size {args.scale_size} must be >= --image-size "
                 f"{args.image_size} (resize-then-crop jitter)")
-    if args.data not in SYNTHETIC:
-        common.refuse_image_folder(p, args.data, "--paired")
     return args
 
 
 def paired_source(args, threaded: bool = True, n_micro: int = 1, mesh=None):
     """The paired source of --data. ``threaded`` (train mode): device
     renderers and device-cached stores as they are (on ``mesh``: the rank's
-    rows), host sources behind one ``ThreadedSource`` worker; otherwise the
-    bare host source (test mode needs its deterministic ``eval_iter``)."""
+    rows), host sources behind ``ThreadedSource`` (one worker, two for an
+    image folder, as in the reference); otherwise the bare host source (test
+    mode needs its deterministic ``eval_iter``)."""
     if args.data in SYNTHETIC:
         if args.data.startswith("device") and threaded:
             return data.DeviceFakePairedImages(
@@ -93,6 +94,12 @@ def paired_source(args, threaded: bool = True, n_micro: int = 1, mesh=None):
                                      deterministic_color=args.data.endswith("-det"))
     elif not os.path.isdir(args.data):
         raise FileNotFoundError(f"--data {args.data!r}: no such directory")
+    elif not data.is_packed_dir(args.data):
+        base = data.PairedImageFolder(
+            args.data, batch_size=args.batch_size, image_size=args.image_size,
+            scale_size=args.scale_size, which_direction=args.which_direction,
+            flip=not args.no_flip, seed=args.seed)
+        return data.ThreadedSource(base, num_workers=2) if threaded else base
     else:
         kw = dict(batch_size=args.batch_size, image_size=args.image_size,
                   which_direction=args.which_direction, flip=not args.no_flip,

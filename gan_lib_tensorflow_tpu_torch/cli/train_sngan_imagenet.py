@@ -6,11 +6,14 @@ checkpoints and auto-resume under --out-dir, sample grids.
 
 --data: a packed store of 128^2 labelled images (held on the card when it
 fits --device-cache-gb, else streamed as uint8), a downsampled-ImageNet npz
-file or a directory of them (streamed), 'fake'/'auto' and 'fake-rich'
-(synthetic class blobs rendered on the host; at 5 x 64 images of 128^2 a
-step, the host renderer is slow) or 'device-fake'/'device-rich' (rendered
-on the device). Image-folder datasets, which the reference decodes with
-Pillow, are not read here: pack them first.
+file or a directory of them (streamed), a folder of class subdirectories of
+JPEG/PNG images (ImageNet's train layout: decoded, center-cropped and
+resized to 128^2 on the host by ``data/codec.py``, two ``ThreadedSource``
+workers; 5 x 64 decodes a step make it host-bound, so pack large folders
+with ``tools/prepack_dataset``), 'fake'/'auto' and 'fake-rich' (synthetic
+class blobs rendered on the host; at 5 x 64 images of 128^2 a step, the
+host renderer is slow) or 'device-fake'/'device-rich' (rendered on the
+device).
 
 Usage: python -m gan_lib_tensorflow_tpu_torch.cli.train_sngan_imagenet \\
            --data runs/imagenet128_store --steps 450000 --out-dir runs/imagenet
@@ -87,9 +90,9 @@ def image_source(args, n_micro: int, mesh=None):
                                  image_size=IMAGE_SIZE, seed=args.seed),
                 num_workers=1)
         if not data.is_packed_dir(args.data):
-            raise ValueError(f"--data {args.data}: neither a packed store nor npz "
-                             f"files; image folders are read by Pillow, which this "
-                             f"package does not use: pack them first")
+            return data.ThreadedSource(data.ImageFolderByClass(
+                args.data, batch_size=args.batch_size, image_size=IMAGE_SIZE,
+                seed=args.seed))
     # 'auto' is 'fake' at 128^2, as in the reference
     return common.image_source(args, args.batch_size, IMAGE_SIZE, args.num_classes,
                                n_micro=n_micro, mesh=mesh)

@@ -20,6 +20,7 @@ the read-only memmap's page cache, one batch at a time.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 from typing import Dict, Iterator, Optional, Sequence
@@ -36,6 +37,20 @@ META_NAME = "meta.json"
 
 def is_packed_dir(path: str) -> bool:
     return os.path.isfile(os.path.join(path, META_NAME))
+
+
+def store_digest(path: str) -> str:
+    """sha256 over every file of a store (or pyramid) directory: each
+    file's path relative to ``path``, then its bytes, in sorted order."""
+    h = hashlib.sha256()
+    for root, dirs, files in os.walk(path):
+        dirs.sort()
+        for name in sorted(files):
+            f = os.path.join(root, name)
+            h.update(os.path.relpath(f, path).encode())
+            with open(f, "rb") as fh:
+                h.update(fh.read())
+    return h.hexdigest()
 
 
 def write_store(out_dir: str, n: int, height: int, width: int,

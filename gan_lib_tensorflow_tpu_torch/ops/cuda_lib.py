@@ -1,7 +1,9 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written native sources.
 
-Each source ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
-compiled with ``nvcc`` for ``sm_90a`` into ``_build/lib<name>_<hash>.so``
+Each source exposes a plain C interface: a CUDA kernel ``csrc/<name>.cu``,
+compiled with ``nvcc`` for ``sm_90a``, or host code ``csrc/<name>.cpp``
+(the image decoder), compiled with the host's C++ compiler (``c++``, else
+``g++``). At first use it is built into ``_build/lib<name>_<hash>.so``
 beside this package, where the hash is of the source, so an edited source
 builds anew and an unchanged one is built once. The library is loaded with
 ``ctypes``; the caller declares its functions' argument types.
@@ -14,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from typing import Callable, Optional
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -21,6 +24,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 
 def _nvcc() -> str:
@@ -31,39 +35,62 @@ def _nvcc() -> str:
     return path
 
 
-class KernelLibrary:
-    """One kernel source, built once per source version and loaded once per
-    process. ``declare(lib)`` sets the ``argtypes``/``restype`` of its
-    functions; every library also exports ``gl_error_string(int)``."""
+def _cxx(source: str) -> str:
+    for name in ("c++", "g++"):
+        path = shutil.which(name)
+        if path:
+            return path
+    raise RuntimeError(f"no host C++ compiler (c++ or g++) on PATH: {source} "
+                       "cannot be built")
 
-    def __init__(self, name: str, declare: Callable[[ctypes.CDLL], None]):
+
+class KernelLibrary:
+    """One native source, built once per source version and loaded once per
+    process, whichever thread asks first (loader threads share it).
+    ``declare(lib)`` sets the ``argtypes``/``restype`` of its functions;
+    every library also exports ``gl_error_string(int)``. ``suffix`` picks
+    the compiler: ``.cu`` (nvcc) or ``.cpp`` (host)."""
+
+    def __init__(self, name: str, declare: Callable[[ctypes.CDLL], None],
+                 suffix: str = ".cu"):
         self.name = name
-        self.source = os.path.join(CSRC_DIR, f"{name}.cu")
+        self.source = os.path.join(CSRC_DIR, f"{name}{suffix}")
         self._declare = declare
         self._lib: Optional[ctypes.CDLL] = None
-        self.build_log = ""  # nvcc's output (ptxas register/shared-memory report)
+        self._lock = threading.Lock()
+        self.build_log = ""  # the compiler's output (ptxas's register/shared-memory report)
+
+    def _command(self, out: str) -> list:
+        if self.source.endswith(".cpp"):
+            return [_cxx(self.source), *CXX_FLAGS, "-o", out, self.source]
+        return [_nvcc(), *NVCC_FLAGS, "-o", out, self.source]
 
     def load(self) -> ctypes.CDLL:
         if self._lib is not None:
             return self._lib
+        with self._lock:
+            if self._lib is None:
+                self._lib = self._build_and_load()
+        return self._lib
+
+    def _build_and_load(self) -> ctypes.CDLL:
         with open(self.source, "rb") as f:
             digest = hashlib.sha256(f.read()).hexdigest()[:16]
         so = os.path.join(BUILD_DIR, f"lib{self.name}_{digest}.so")
         if not os.path.exists(so):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, self.source],
-                                  capture_output=True, text=True)
+            cmd = self._command(tmp)
+            proc = subprocess.run(cmd, capture_output=True, text=True)
             self.build_log = proc.stdout + proc.stderr
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {self.source} "
+                raise RuntimeError(f"{os.path.basename(cmd[0])} failed on {self.source} "
                                    f"({proc.returncode}):\n{self.build_log}")
             os.replace(tmp, so)  # atomic: concurrent builders never load half a file
         lib = ctypes.CDLL(so)
         self._declare(lib)
         lib.gl_error_string.argtypes = [ctypes.c_int]
         lib.gl_error_string.restype = ctypes.c_char_p
-        self._lib = lib
         return lib
 
     def check(self, err: int, what: str) -> None:

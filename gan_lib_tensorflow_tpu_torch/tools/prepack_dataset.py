@@ -1,24 +1,32 @@
-"""Prepack ``.npz`` image data into a uint8 memmap store (port of the npz
-route of ``tools/prepack_dataset.py``; the store layout is
-``data/packed.py``'s).
+"""Prepack an image dataset into a uint8 memmap store (port of
+``tools/prepack_dataset.py``; the store layout is ``data/packed.py``'s, and
+every store is byte-equal to the reference tool's on the same input).
 
-Input: an ``.npz`` file, or a directory of them, each with ``data`` (NHWC
-uint8, or rows of ``3 * size * size`` CHW bytes as the downsampled-ImageNet
-files hold them) and ``labels`` (or ``label``); streamed file by file, never
-concatenated in memory, into a labelled store. Labels that start at 1 across
-all files are shifted to start at 0. With ``--resolutions`` the output is a
+Inputs:
+  * a folder of class subdirectories of images -> labelled store (ImageNet)
+  * a flat folder of images                     -> unlabelled store (CelebA-HQ)
+  * an ``.npz`` file, or a directory of them, with ``data`` (NHWC uint8, or
+    rows of ``3 * size * size`` CHW bytes as the downsampled-ImageNet files
+    hold them) and ``labels`` (or ``label``) -> labelled store, streamed
+    file by file; labels that start at 1 across all files start at 0
+  * ``--paired``: a folder of combined A|B images (pix2pix) -> a paired
+    store of ``[N, size, 2 * size, 3]`` rows, each half resized to --size
+
+Images (``.jpg .jpeg .png .bmp .webp``, by lower-cased extension, sorted)
+are decoded by ``data/codec.py`` (the hand-written JPEG/PNG decoder),
+center-cropped to their short side and resized to --size with Pillow's
+bilinear resample; a file it cannot decode (WebP among them) stops the tool
+with a ``ValueError`` naming it. With ``--resolutions`` the output is a
 PGGAN pyramid store (members ``r{res:04d}/``): each chunk of the top level
 is box-downsampled by 2 in float32 level after level (``data/multires.py``)
-and rounded to uint8, byte-equal to the reference's writer.
+and rounded to uint8.
 
-Image folders (the reference decodes them with Pillow) and ``--paired``
-(combined A|B images, Pillow as well) are refused with exit code 2: this
-package does not use Pillow.
-
-Usage: python -m gan_lib_tensorflow_tpu_torch.tools.prepack_dataset --src train_64x64 \\
-           --out /data/packed64 --size 64
-       python -m gan_lib_tensorflow_tpu_torch.tools.prepack_dataset --src faces.npz \\
-           --out /data/pg --size 256 --resolutions 256,128,64,32,16,8,4
+Usage: python -m gan_lib_tensorflow_tpu_torch.tools.prepack_dataset --src imagenet/train \\
+           --out /data/packed128 --size 128
+       python -m gan_lib_tensorflow_tpu_torch.tools.prepack_dataset --src celeba_hq \\
+           --out /data/pg --size 1024 --resolutions 1024,512,256,128,64,32,16,8,4
+       python -m gan_lib_tensorflow_tpu_torch.tools.prepack_dataset --src facades/train \\
+           --out /data/facades286 --size 286 --paired
 """
 
 from __future__ import annotations
@@ -32,12 +40,10 @@ import time
 
 import numpy as np
 
-from ..data import packed
+from ..data import codec, packed
 from ..data.multires import box_downsample
 
-PILLOW = ("the reference decodes images with Pillow, which this package does not "
-          "use: pack them where the JAX package runs (tools/prepack_dataset.py), or "
-          "convert them to .npz files with 'data' and 'labels' first")
+IMG_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
 
 
 def npz_inputs(src: str):
@@ -48,6 +54,28 @@ def npz_inputs(src: str):
     if os.path.isdir(src):
         return sorted(glob.glob(os.path.join(src, "*.npz"))) or None
     return None
+
+
+def image_inputs(src: str):
+    """``(files, labels, classes)`` of an image folder (reference
+    ``_list_inputs``): the images of its sorted class subdirectories with
+    their class indices, or, when those hold none, its own images with
+    labels and classes None."""
+    if os.path.isdir(src):
+        subdirs = sorted(d for d in os.listdir(src) if os.path.isdir(os.path.join(src, d)))
+        files, labels = [], []
+        for ci, c in enumerate(subdirs):
+            for f in sorted(os.listdir(os.path.join(src, c))):
+                if f.lower().endswith(IMG_EXTS):
+                    files.append(os.path.join(src, c, f))
+                    labels.append(ci)
+        if files:
+            return files, labels, subdirs
+        flat = [os.path.join(src, f) for f in sorted(os.listdir(src))
+                if f.lower().endswith(IMG_EXTS)]
+        if flat:
+            return flat, None, None
+    raise FileNotFoundError(f"--src {src!r}: no images, class dirs, or npz found")
 
 
 def _labels(d) -> np.ndarray:
@@ -72,6 +100,60 @@ def pyramid_write(stores, labels_arrs, pos: int, chunk_u8: np.ndarray,
             labels[pos:pos + len(cur)] = labels_chunk
 
 
+def _stores(out: str, n: int, resolutions, classes):
+    """One store per resolution (``r{res:04d}/`` members when several)."""
+    dirs = [os.path.join(out, f"r{res:04d}") if len(resolutions) > 1 else out
+            for res in resolutions]
+    made = [packed.write_store(d, n, res, res, 3, classes=classes)
+            for d, res in zip(dirs, resolutions)]
+    return dirs, [m[0] for m in made], [m[1] for m in made]
+
+
+def pack_images(args, resolutions) -> int:
+    """An image folder (class subdirectories or flat) -> a store, or a
+    pyramid of them, in chunks of --chunk images."""
+    files, labels, classes = image_inputs(args.src)
+    n = min(len(files), args.limit) if args.limit else len(files)
+    dirs, stores, labels_arrs = _stores(args.out, n, resolutions, classes)
+    t0 = time.time()
+    for pos in range(0, n, args.chunk):
+        chunk = files[pos:pos + args.chunk][:n - pos]
+        pyramid_write(stores, labels_arrs, pos,
+                      np.stack([codec.load_square(f, args.size) for f in chunk]),
+                      None if labels is None else
+                      np.asarray(labels[pos:pos + len(chunk)], np.int32), resolutions)
+        if (pos + len(chunk)) % (args.chunk * 8) == 0:
+            print(f"  {pos + len(chunk)}/{n} ({(pos + len(chunk)) / (time.time() - t0):.0f} "
+                  "img/s)", flush=True)
+    for d, store, la in zip(dirs, stores, labels_arrs):
+        packed.finalize_store(d, store, la)
+    dt = time.time() - t0
+    print(json.dumps({"packed": n, "resolutions": resolutions, "out": args.out,
+                      "seconds": dt, "img_per_s": n / max(dt, 1e-9),
+                      "bytes": sum(int(np.prod(s.shape)) for s in stores)}), flush=True)
+    return 0
+
+
+def pack_paired(args) -> int:
+    """--paired: combined A|B images -> a paired store at --size per half
+    (``write_store(..., paired=True)``)."""
+    files, _, _ = image_inputs(args.src)
+    n = min(len(files), args.limit) if args.limit else len(files)
+    s = args.size
+    store, _ = packed.write_store(args.out, n, s, 2 * s, 3, classes=None, paired=True)
+    t0 = time.time()
+    for pos in range(n):
+        store[pos] = np.concatenate(codec.load_halves(files[pos], s), axis=1)
+        if (pos + 1) % (args.chunk * 4) == 0:
+            print(f"  {pos + 1}/{n} ({(pos + 1) / (time.time() - t0):.0f} img/s)", flush=True)
+    packed.finalize_store(args.out, store, None)
+    dt = time.time() - t0
+    print(json.dumps({"packed": n, "paired": True, "scale_size": s, "out": args.out,
+                      "seconds": dt, "img_per_s": n / max(dt, 1e-9),
+                      "bytes": int(np.prod(store.shape))}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -84,20 +166,19 @@ def main(argv=None) -> int:
     p.add_argument("--chunk", type=int, default=256)
     p.add_argument("--limit", type=int, default=0, help="cap image count (testing)")
     p.add_argument("--paired", action="store_true",
-                   help="combined A|B images (pix2pix): refused, see --help")
+                   help="combined A|B images (pix2pix): store both halves at --size "
+                        "per half; the per-step jitter happens in "
+                        "data.PackedPairedStore")
     args = p.parse_args(argv)
     if args.paired:
-        p.error(f"--paired: {PILLOW}")
-    files = npz_inputs(args.src)
-    if files is None:
-        if not os.path.exists(args.src):
-            raise FileNotFoundError(f"--src {args.src!r}: no such file or directory")
-        p.error(f"--src {args.src}: no .npz files; {PILLOW}")
-
+        return pack_paired(args)
     resolutions = ([int(r) for r in args.resolutions.split(",")]
                    if args.resolutions else [args.size])
     if resolutions[0] != args.size or resolutions != sorted(resolutions, reverse=True):
         raise ValueError("--resolutions must start at --size and descend")
+    files = npz_inputs(args.src)
+    if files is None:
+        return pack_images(args, resolutions)
 
     n = 0
     label_min = None

@@ -12,8 +12,10 @@
 - ``resolve_pyramid_dir``/``open_pyramid``: the reference's errors, and
   batches bit-equal to the reference's;
 - ``train_pggan --data``: every choice resolves to the reference's kind of
-  source, a plain folder exits with code 2; a ladder to 16^2 at width 1/64
-  from a pyramid store reads each phase's own member and resumes bit-equal.
+  source, a folder of images that is no store is read by ``ImageFolderFlat``
+  (an empty one raises the reference's ``FileNotFoundError``); a ladder to
+  16^2 at width 1/64 from a pyramid store reads each phase's own member and
+  resumes bit-equal.
 """
 
 import importlib.util
@@ -230,7 +232,7 @@ def test_device_synthetic_choices(choice, style):
     assert src.render()["image"].shape == (1, 4, 16, 16, 3)
 
 
-def test_pyramid_choice_and_refusals(tmp_path, capsys):
+def test_pyramid_choice_and_refusals(tmp_path):
     pyr = str(tmp_path / "pyr")
     data.write_pyramid(pyr, _u8((8, 16, 16, 3), 3), [16, 8, 4])
     args = train_pggan.parse_args(TINY + ["--data", pyr, "--final-resolution", "16"])
@@ -251,10 +253,9 @@ def test_pyramid_choice_and_refusals(tmp_path, capsys):
         train_pggan.source_factory(single)(8, 4)
     folder = tmp_path / "images"
     folder.mkdir()
-    with pytest.raises(SystemExit) as e:
-        train_pggan.parse_args(TINY + ["--data", str(folder)])
-    assert e.value.code == 2
-    assert "tools/prepack_dataset.py --resolutions" in capsys.readouterr().err
+    make = train_pggan.source_factory(train_pggan.parse_args(TINY + ["--data", str(folder)]))
+    with pytest.raises(FileNotFoundError, match="no images under"):
+        make(8, 4)  # the reference's ImageFolderFlat refuses it alike
     missing = train_pggan.parse_args(TINY + ["--data", str(tmp_path / "nowhere")])
     with pytest.raises(FileNotFoundError, match="no such directory"):
         train_pggan.source_factory(missing)

@@ -7,8 +7,9 @@
 - ``cli.evaluate --model pggan``: the record's keys equal the reference's on
   the same arguments, with a pyramid store, ``device-rich``, ``auto`` and
   ``fake`` as --data, on a mid-transition checkpoint carried across with
-  ``convert.py``; a repeat gives the same record; an image folder exits
-  with code 2;
+  ``convert.py``; a repeat gives the same record; a flat folder of images
+  gives the reference's record keys, and an empty folder the reference's
+  ``FileNotFoundError``;
 - ``cli.sample --model pggan`` on that mid-transition checkpoint (alpha 0.5):
   equal to the reference's sampler (G built without the fade-in, applied to
   the EMA parameters) on the same z within rtol 1e-5, atol 1e-6.
@@ -21,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from gan_lib_tensorflow_tpu.cli import evaluate as jevaluate
 from gan_lib_tensorflow_tpu.models import pggan as jpggan
@@ -175,13 +177,27 @@ def test_evaluate_record_keys_are_the_references(source, eval_setup, capsys):
         k: v for k, v in got.items() if k != "swd_seconds"}
 
 
-def test_evaluate_refuses_an_image_folder_and_a_wrong_store(eval_setup, tmp_path, capsys):
-    _, _, tdir, pyr = eval_setup
+def test_evaluate_refuses_an_image_folder_and_a_wrong_store(eval_setup, tmp_path):
+    """An empty folder is refused as the reference refuses it; a folder of
+    images is read (the reference's record keys); a store of the wrong
+    resolution is refused."""
+    _, jdir, tdir, pyr = eval_setup
     folder = tmp_path / "celeba"
     folder.mkdir()
-    with pytest.raises(SystemExit) as e:
-        evaluate.main(_args(tdir, str(folder)) + ["--device", "cpu"])
-    assert e.value.code == 2
-    assert "tools/prepack_dataset.py --resolutions" in capsys.readouterr().err
+    for ev, ckpt in ((jevaluate, jdir), (evaluate, tdir)):  # as the reference refuses it
+        with pytest.raises(FileNotFoundError, match="no images under"):
+            ev.main(_args(ckpt, str(folder)) + (["--device", "cpu"] if ev is evaluate else []))
+    rng = np.random.default_rng(1)
+    for i in range(8):
+        Image.fromarray(rng.integers(0, 256, (RES + 4, RES, 3), np.uint8)).save(
+            folder / f"{i}.png" if i % 2 else folder / f"{i}.jpg")
+    out_json = str(tmp_path / "ref.json")
+    jevaluate.main(_args(jdir, str(folder)) + ["--out-json", out_json])
+    with open(out_json) as f:
+        want = json.load(f)
+    got = evaluate.main(_args(tdir, str(folder)) + ["--device", "cpu"])
+    assert list(got) == list(want) and got["swd_images"] == want["swd_images"] == 8
+    assert all(np.isfinite(got[k]) for k in got if k.startswith("swd_")
+               and k != "swd_desc_dtype")
     with pytest.raises(ValueError, match="is 8px, wanted 16px"):
         evaluate.main(_args(tdir, pyr + "/r0008") + ["--device", "cpu"])

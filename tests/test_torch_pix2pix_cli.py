@@ -17,6 +17,7 @@ import pytest
 import torch
 from PIL import Image
 
+from gan_lib_tensorflow_tpu_torch import data
 from gan_lib_tensorflow_tpu_torch.cli import sample, train_acgan, train_pix2pix, train_sngan
 from gan_lib_tensorflow_tpu_torch.data import packed
 from gan_lib_tensorflow_tpu_torch.models import acgan, pix2pix, sngan
@@ -138,11 +139,24 @@ def test_export_bundle_equals_the_eager_generator(runs):
     assert not torch.allclose(served, other)  # the masks are part of the bundle
 
 
-def test_non_packed_folder_is_refused(tmp_path, capsys):
-    with pytest.raises(SystemExit) as e:
-        train_pix2pix.main(TINY + ["--data", str(tmp_path)])
-    assert e.value.code == 2
-    assert "tools/prepack_dataset.py --paired" in capsys.readouterr().err
+def test_non_packed_folder_is_refused(tmp_path):
+    """(Its name is from when such folders were refused.) A folder that is
+    no store is the reference's ``PairedImageFolder`` (two workers in train
+    mode); an empty one is refused with its ``FileNotFoundError``;
+    --scale-size below --image-size exits 2."""
+    folder = tmp_path / "facades"
+    folder.mkdir()
+    with pytest.raises(FileNotFoundError, match="no images in"):
+        train_pix2pix.main(TINY + ["--data", str(folder), "--out-dir", str(tmp_path / "o")])
+    rng = np.random.default_rng(0)
+    for i in range(2):
+        Image.fromarray(rng.integers(0, 256, (40, 80, 3), np.uint8)).save(folder / f"{i}.jpg")
+    args = train_pix2pix.parse_args(TINY + ["--data", str(folder)])
+    src = train_pix2pix.paired_source(args)
+    assert isinstance(src.source, data.PairedImageFolder) and src.num_workers == 2
+    batch = next(iter(src))
+    assert batch["input"].shape == batch["target"].shape == (1, 32, 32, 3)
+    assert isinstance(train_pix2pix.paired_source(args, threaded=False), data.PairedImageFolder)
     with pytest.raises(SystemExit) as e:
         train_pix2pix.main(TINY + ["--scale-size", "16"])
     assert e.value.code == 2

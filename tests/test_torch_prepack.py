@@ -4,7 +4,9 @@ loaded from its file), on the CPU: the same random ``.npz`` files at
 ``--size 32 --resolutions 32,16,8,4`` (NHWC ``data``, 1-indexed labels across
 the files), and one file of CHW rows as the downsampled-ImageNet files hold
 them, give byte-equal stores and pyramid members and equal metadata; a
-folder of images and ``--paired`` exit 2 naming Pillow."""
+folder of class subdirectories and ``--paired`` are packed (byte-equal
+there: ``test_torch_image_folders.py``), and a WebP file stops the tool
+with a ``ValueError`` naming it."""
 
 import importlib.util
 import json
@@ -64,12 +66,20 @@ def test_stores_are_byte_equal_to_the_references(ref, tmp_path, resolutions, chw
         assert got[2].min() == 0  # shifted from 1-indexed
 
 
-def test_folders_and_paired_exit_2_naming_pillow(tmp_path, capsys):
+def test_folders_and_paired_exit_2_naming_pillow(tmp_path):
+    """(Its name is from when folders and --paired exited 2.) A class folder
+    and --paired are packed; a WebP file is refused by name."""
+    from PIL import Image
     (tmp_path / "imgs" / "cls").mkdir(parents=True)
-    (tmp_path / "imgs" / "cls" / "a.jpg").write_bytes(b"jpeg")
-    for argv in (["--src", str(tmp_path / "imgs")],
-                 ["--src", str(tmp_path / "imgs"), "--paired"]):
-        with pytest.raises(SystemExit) as err:
-            port.main(argv + ["--out", str(tmp_path / "out"), "--size", "32"])
-        assert err.value.code == 2 and "Pillow" in capsys.readouterr().err
-    assert not os.path.exists(tmp_path / "out")
+    Image.fromarray(np.full((40, 64, 3), 90, np.uint8)).save(tmp_path / "imgs" / "cls" / "a.jpg")
+    port.main(["--src", str(tmp_path / "imgs"), "--out", str(tmp_path / "out"), "--size", "32"])
+    meta, images, labels = _store(tmp_path / "out")
+    assert (meta["n"], meta["classes"], images.size, labels.tolist()) == (1, ["cls"], 3072, [0])
+    port.main(["--src", str(tmp_path / "imgs"), "--out", str(tmp_path / "pairs"),
+               "--size", "32", "--paired"])
+    with open(tmp_path / "pairs" / "meta.json") as f:
+        assert json.load(f)["paired"] is True
+    webp = tmp_path / "imgs" / "cls" / "b.webp"
+    webp.write_bytes(b"RIFF\x10\0\0\0WEBPVP8 " + bytes(8))
+    with pytest.raises(ValueError, match="b.webp: WebP"):
+        port.main(["--src", str(tmp_path / "imgs"), "--out", str(tmp_path / "w"), "--size", "32"])
