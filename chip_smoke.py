@@ -220,11 +220,38 @@ final line):
      ``tools/prepack_dataset`` on the fixtures (class folders, a flat
      ``--resolutions`` pyramid, ``--paired``): each store's sha256 equal to
      the reference tool's in the manifest
+ 19. TF1 checkpoints without TensorFlow (``tools/tf1_bundle.py``, the
+     hand-written tensor-bundle reader, and ``tools/import_tf1_checkpoint``):
+     (a) every committed TensorFlow-written bundle
+     (``tests/torch_fixtures/tf1/``: every dtype, partitioned variables, two
+     shards, a TF2 object graph) read on the card's host, each tensor's
+     sha256 equal to the manifest written from ``tf.train.load_checkpoint``;
+     a copy with one data byte flipped and one with an index byte flipped
+     each refused with the CRC32C error; the reader's MB/s on a 64 MiB
+     tensor; (b) SNGAN CIFAR-10 at full width: a tflib-named bundle (the
+     igul222 NCHW boundary, Adam slots, ``beta*_power``, ``global_step``)
+     written by the test scaffolding writer, imported by ``python -m
+     ...tools.import_tf1_checkpoint --model sngan --nchw-boundary``: 0
+     unmatched, nothing dropped kept, every imported tensor its source
+     (bit-equal, after the permutation); ``cli.sample`` draws a grid from
+     the imported EMA; ``cli.train_sngan`` refuses the checkpoint (no lr
+     schedule in it), as the reference's refuses its tool's, so no CLI
+     resumes the import; ``train_loop``'s auto-resume, called here
+     directly, takes it up with the optimizer it was written with
+     (Adam(2e-4, 0, 0.9), no schedule) for 3 fused steps at batch 64: 6
+     power-iteration launches a step on the imported D, whose first sigma
+     agrees with the plain version (rtol 1e-4); (c) SNGAN-projection
+     ImageNet-128 at full width (1000 classes; 326 MB of float32): the
+     bundle read alone (MB/s) and the whole tool timed, every tensor its
+     source, and the first power-iteration launch on the imported D's 19
+     weights against the plain version (rtol 1e-4)
 
 The power iteration's ``launches`` in the kernels' record are those of
 phase 5's SNGAN run, phase 12's conditional SNGAN run, every run of
 phase 15 (each rank's and the one-rank runs'), the runs of phase 17's
-tools and ``--data`` words, and phase 18's ImageNet-128 runs; the
+tools and ``--data`` words, phase 18's ImageNet-128 runs and phase 19's
+loop-level resume of the imported SNGAN (``train_loop`` called directly:
+no CLI resumes an import); the
 fade-in's are those of phase 6's ladder, phase 14's ladder (b), the ladders
 and steps of phases 15 and 16 (each rank's and the one-process runs') and
 phase 18's ladder and 1024^2 steps.
@@ -319,6 +346,11 @@ FOLDER_LADDER_RES = 256
 FOLDER_1024_TIMED = 6
 DEVICE_PREFETCH = 2  # prefetch_to_device's depth
 DECODE_SECONDS = 0.5  # per format, for its decode rate
+# TF1 checkpoints (phase 19): the committed TensorFlow-written bundles and
+# their manifest, and the steps of the SNGAN run resumed from an import
+TF1_FIXTURES = os.path.join("tests", "torch_fixtures", "tf1")
+TF1_STEPS = 3
+TF1_RATE_BYTES = 64 << 20  # one tensor for the reader's rate
 
 
 def nvidia_smi(fields: str) -> str:
@@ -2912,6 +2944,235 @@ def image_folders(card: str, tmp: str) -> tuple:
     return pi_total, fd_total
 
 
+def tf1_writer():
+    """The test scaffolding's bundle writer (``tests/torch_fixtures/tf1/``)."""
+    if os.path.abspath(TF1_FIXTURES) not in sys.path:
+        sys.path.insert(0, os.path.abspath(TF1_FIXTURES))
+    import bundle_writer
+    return bundle_writer
+
+
+def tf1_bundle_with(prefix: str, g, d, seed: int, extra: dict = None) -> tuple:
+    """A tflib-named bundle of the port networks ``g`` and ``d`` (unit
+    normals from ``seed``) written by the test scaffolding writer at
+    ``prefix``; returns (prefix, [(tf name, flax path, value)])."""
+    bundle_writer = tf1_writer()
+    named = (bundle_writer.tflib_variables(g, "Generator", seed)
+             + bundle_writer.tflib_variables(d, "Discriminator", seed + 1))
+    bundle_writer.write_bundle(prefix, {**{n: v for n, _, v in named}, **(extra or {})})
+    return prefix, named
+
+
+def imported_equal_sources(ckpt_file: str, named: list, nchw: bool) -> int:
+    """Every tensor of the step-0 checkpoint ``ckpt_file`` that came from
+    the bundle equals its source in the port's layout (G's dense columns
+    from (C, H, W) to (H, W, C) order under ``nchw``), and the EMA equals
+    G; returns the tensors checked."""
+    import numpy as np
+    import torch
+    from gan_lib_tensorflow_tpu_torch.convert import to_torch_names
+    raw = torch.load(ckpt_file, map_location="cpu", weights_only=True)
+    n = 0
+    for tf_name, path, val in named:
+        if nchw and tf_name.startswith("Generator") and path in ("params/dense/kernel",
+                                                                 "params/dense/bias"):
+            val = val[..., np.arange(val.shape[-1]).reshape(-1, 4, 4).transpose(1, 2, 0).ravel()]
+        tree = val
+        for k in reversed(path.split("/")[1:]):
+            tree = {k: tree}
+        ((name, want),) = to_torch_names(tree).items()
+        net = raw["g" if tf_name.startswith("Generator") else "d"]
+        check(np.array_equal(net[name].numpy(), want), f"imported {name} differs from {tf_name}")
+        n += 1
+    check(all(torch.equal(raw["ema_params"][k], raw["g"][k]) for k in raw["ema_params"]),
+          "the EMA is not the imported G")
+    check(raw["step"] == 0 and raw["g_sched"] is None, "not a step-0 checkpoint without schedule")
+    return n
+
+
+def sigma_against_plain(pi, torch, d) -> float:
+    """The power iteration on D's SN weights (kernel) against its plain
+    version on the same W and u; the max abs error of sigma."""
+    ws = [m.weight.detach() for m in d.sn_layers]
+    us = [m.u.detach().clone() for m in d.sn_layers]
+    sigma, _, _ = pi.launch(ws, us)
+    plain, _, _ = pi.plain_power_iteration(ws, us)
+    torch.testing.assert_close(sigma, plain.detach(), rtol=1e-4, atol=0.0)
+    return float((sigma - plain).abs().max())
+
+
+def tf1_checkpoints(card: str, tmp: str) -> int:
+    """Phase 19, in the temporary directory ``tmp``. Returns the
+    power-iteration launches of its resumed SNGAN run. That resume is
+    ``train_loop``'s, called here directly: the port's ``cli.train_sngan``
+    refuses the imported checkpoint (it holds no lr schedule), as the
+    reference's ``train_sngan`` refuses its tool's, and ``cli.sample`` and
+    ``cli.evaluate``, which take the import, run no D."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    from gan_lib_tensorflow_tpu_torch.cli import common, sample, train_sngan
+    from gan_lib_tensorflow_tpu_torch.models import sngan
+    from gan_lib_tensorflow_tpu_torch.ops import power_iteration as pi
+    from gan_lib_tensorflow_tpu_torch.tools import import_tf1_checkpoint as imp
+    from gan_lib_tensorflow_tpu_torch.tools import tf1_bundle
+    from gan_lib_tensorflow_tpu_torch.train import (CheckpointManager, LoopConfig, create_state,
+                                                    make_train_step, train_loop)
+
+    # (a) the committed TensorFlow-written bundles against their manifest
+    with open(os.path.join(TF1_FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    n_tensors = 0
+    for key, entry in sorted(manifest["bundles"].items()):
+        with tf1_bundle.open_bundle(os.path.join(TF1_FIXTURES, entry["prefix"])) as bundle:
+            check(set(bundle.variables) == set(entry["tensors"]), f"{key}: other tensors listed")
+            for name, want in entry["tensors"].items():
+                dtype, shape = bundle.variables[name]
+                check((dtype, list(shape)) == (want["dtype"], want["shape"]),
+                      f"{key} {name}: {dtype} {shape}, the manifest's {want}")
+                if "sha256" in want:
+                    got = hashlib.sha256(bundle.read(name).tobytes()).hexdigest()
+                    check(got == want["sha256"], f"{key} {name}: sha256 differs from TensorFlow's")
+                    n_tensors += 1
+    for fault, target in (("data", ".data-00000-of-00001"), ("index", ".index")):
+        copy = os.path.join(tmp, f"corrupt_{fault}")
+        shutil.copytree(os.path.join(TF1_FIXTURES, "dtypes"), copy)
+        path = os.path.join(copy, "model.ckpt" + target)
+        with open(path, "r+b") as f:  # a byte of a tensor or of the first block
+            f.seek(10)
+            b = f.read(1)
+            f.seek(10)
+            f.write(bytes([b[0] ^ 0x40]))
+        try:
+            with tf1_bundle.open_bundle(os.path.join(copy, "model.ckpt")) as bundle:
+                for name, (dtype, _) in bundle.variables.items():
+                    if dtype != "string":
+                        bundle.read(name)
+        except tf1_bundle.BundleError as e:
+            check("CRC32C mismatch" in str(e), f"flipped {fault} byte: {e}")
+        else:
+            check(False, f"a flipped {fault} byte was not refused")
+    rate_prefix = os.path.join(tmp, "rate", "model.ckpt")
+    bundle_writer = tf1_writer()
+    bundle_writer.write_bundle(rate_prefix, {"gen/w": np.random.default_rng(0).standard_normal(
+        TF1_RATE_BYTES // 4, dtype=np.float32)})
+    t0 = time.perf_counter()
+    tf1_bundle.read_tf_checkpoint(rate_prefix)
+    rate = TF1_RATE_BYTES / (time.perf_counter() - t0) / 1e6
+    print(f"(a) the committed TensorFlow 2.21 bundles ({len(manifest['bundles'])}: every dtype, "
+          f"partitioned variables, two shards, a TF2 object graph): {n_tensors} tensors equal to "
+          f"the manifest's sha256; a flipped data byte and a flipped index byte each refused "
+          f"(CRC32C); reader {rate:.1f} MB/s on one {TF1_RATE_BYTES}-byte float32 tensor (host, "
+          f"numpy CRC32C, {os.cpu_count()} CPUs)", flush=True)
+
+    # (b) SNGAN CIFAR-10 at full width, imported by the tool's entry point
+    g, d = sngan.cifar_generator(), sngan.cifar_discriminator()
+    slots = {"Generator.00.W/Adam": np.zeros((3, 3, 256, 256), np.float32),
+             "Generator.00.W/Adam_1": np.zeros((3, 3, 256, 256), np.float32),
+             "beta1_power": np.float32(0.0), "beta2_power": np.float32(0.9),
+             "global_step": np.int64(100_000)}
+    prefix, named = tf1_bundle_with(os.path.join(tmp, "sngan_tf1", "model.ckpt-100000"), g, d,
+                                    19, slots)
+    out = os.path.join(tmp, "sngan_imported")
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "gan_lib_tensorflow_tpu_torch.tools."
+                          "import_tf1_checkpoint", "--ckpt", prefix, "--model", "sngan",
+                          "--nchw-boundary", "--out-dir", out],
+                         capture_output=True, text=True, timeout=300)
+    tool_s = time.perf_counter() - t0
+    check(run.returncode == 0, f"import_tf1_checkpoint exited {run.returncode}: {run.stderr[-2000:]}")
+    with open(os.path.join(out, "import_report.json")) as f:
+        report = json.load(f)
+    unmatched = sum(len(report[n][k]) for n in ("generator", "discriminator")
+                    for k in ("unmatched_target", "unmatched_tf"))
+    kept = json.dumps(report)
+    check(unmatched == 0 and not any(k in kept for k in slots),
+          f"{unmatched} unmatched, or a slot kept: {kept[:500]}")
+    n_checked = imported_equal_sources(os.path.join(out, "ckpt", "step_000000.pt"), named, True)
+    print(f"(b) SNGAN CIFAR-10, full width: {len(named)} tflib variables + {len(slots)} slots "
+          f"dropped, imported by `python -m ...import_tf1_checkpoint --model sngan "
+          f"--nchw-boundary` in {tool_s:.2f} s (its process start included): 0 unmatched, "
+          f"{n_checked} tensors equal to their sources (G's dense columns permuted), EMA = G; "
+          + " ".join(line for line in run.stdout.splitlines() if line.startswith("read")),
+          flush=True)
+    grid = os.path.join(tmp, "imported_grid.png")
+    imgs = sample.main(["--model", "sngan", "--ckpt-dir", os.path.join(out, "ckpt"),
+                        "--out", grid, "--n", "16"])
+    check(tuple(imgs.shape) == (16, 32, 32, 3) and bool(torch.isfinite(imgs).all())
+          and os.path.getsize(grid) > 0, "cli.sample on the imported checkpoint")
+    argv = ["--data", "device-fake", "--batch-size", str(BATCH), "--n-critic", str(N_CRITIC),
+            "--compute-dtype", "bf16", "--steps", str(TF1_STEPS), "--log-every", "1",
+            "--sample-every", "1000", "--out-dir", out]
+    try:
+        train_sngan.main(argv)
+    except ValueError as e:
+        check("g_sched" in str(e), f"train_sngan refused the import for another reason: {e}")
+    else:
+        check(False, "train_sngan took up a checkpoint without its lr schedule")
+    # the loop's auto-resume, with the optimizer the checkpoint was written with
+    args = train_sngan.parse_args(argv)
+    g = sngan.cifar_generator(compute_dtype=torch.bfloat16)
+    d = sngan.cifar_discriminator(compute_dtype=torch.bfloat16)
+    spec = sngan.make_sngan_spec(g, d, n_critic=N_CRITIC, ema_decay=imp.EMA_DECAY)
+    state = create_state(g, d, lr=2e-4, beta1=0.0, beta2=0.9, ema_decay=imp.EMA_DECAY,
+                         device="cuda")
+    ckpt = CheckpointManager(os.path.join(out, "ckpt"))
+    check(ckpt.restore_latest(state) is not None, "no imported checkpoint to resume")
+    sigma_err = sigma_against_plain(pi, torch, d)  # the first launch's W and u
+    source = common.image_source(args, BATCH, 32, 10, n_micro=spec.n_critic)
+    logs = []
+    pi.launches = 0  # count this path's launches only
+    train_loop(state, make_train_step(spec), source,
+               LoopConfig(total_steps=TF1_STEPS, log_every=1, sample_every=10 ** 6,
+                          checkpoint_every=10 ** 6),
+               lambda it, m: logs.append(m), ckpt=ckpt)
+    torch.cuda.synchronize()
+    launches = pi.launches
+    ckpt.close()
+    check(state.step == TF1_STEPS and launches == (N_CRITIC + 1) * TF1_STEPS
+          and len(logs) == TF1_STEPS and all(math.isfinite(v) for m in logs for v in m.values()),
+          f"resumed run: step {state.step}, {launches} launches, metrics {logs}")
+    print(f"cli.sample: 16 samples of the imported EMA; cli.train_sngan refuses the checkpoint "
+          f"(no lr schedule in it, as the reference's refuses its tool's); train_loop's own "
+          f"auto-resume, which no CLI reaches, with Adam(2e-4, 0, 0.9): {TF1_STEPS} fused "
+          f"steps at batch {BATCH}, {launches} power-iteration launches on the imported D, its first sigma against "
+          f"the plain version max abs err {sigma_err:.3e} (rtol 1e-4); metrics {logs[-1]}  "
+          f"[{card}]", flush=True)
+    del state, g, d
+
+    # (c) SNGAN-projection ImageNet-128 at full width: the largest bundle
+    g, d = sngan.imagenet128_generator(), sngan.imagenet128_discriminator()
+    t0 = time.perf_counter()
+    prefix, named = tf1_bundle_with(os.path.join(tmp, "imagenet_tf1", "model.ckpt"), g, d, 23)
+    write_s = time.perf_counter() - t0
+    n_bytes = os.path.getsize(prefix + ".data-00000-of-00001")
+    del g, d
+    t0 = time.perf_counter()
+    tf1_bundle.read_tf_checkpoint(prefix)
+    read_s = time.perf_counter() - t0
+    out = os.path.join(tmp, "imagenet_imported")
+    t0 = time.perf_counter()
+    check(imp.main(["--ckpt", prefix, "--model", "imagenet", "--out-dir", out]) == 0,
+          "the ImageNet-128 import failed")
+    tool_s = time.perf_counter() - t0
+    ckpt_file = os.path.join(out, "ckpt", "step_000000.pt")
+    n_checked = imported_equal_sources(ckpt_file, named, False)
+    d = sngan.imagenet128_discriminator()
+    d.load_state_dict(torch.load(ckpt_file, map_location="cpu", weights_only=True)["d"])
+    d.cuda()
+    sigma_err_in = sigma_against_plain(pi, torch, d)
+    print(f"(c) SNGAN-projection ImageNet-128, full width, 1000 classes: {len(named)} "
+          f"variables, {n_bytes} bytes written in {write_s:.2f} s; the reader alone "
+          f"{read_s:.3f} s ({n_bytes / read_s / 1e6:.1f} MB/s); the whole tool in process "
+          f"(read, match, build on the card, write the {os.path.getsize(ckpt_file)}-byte "
+          f"step-0 checkpoint) {tool_s:.3f} s ({n_bytes / tool_s / 1e6:.1f} MB/s of bundle); "
+          f"{n_checked} tensors equal to their sources; the first power-iteration launch on "
+          f"the imported D's {len(d.sn_layers)} weights against the plain version max abs "
+          f"err {sigma_err_in:.3e} (rtol 1e-4)  [{card}]", flush=True)
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -3289,12 +3550,21 @@ def main() -> None:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 18: {time.perf_counter() - t18:.1f} s  [{card}]")
 
+    phase("19 TF1 checkpoints on the card without TensorFlow: the bundle reader and the importer")
+    t19 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        tf1_pi = tf1_checkpoints(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 19: {time.perf_counter() - t19:.1f} s  [{card}]")
+
     print(json.dumps({"kernels": [{
         "name": "batched_power_iteration",
         "route": "cuda",
         "source": "gan_lib_tensorflow_tpu_torch/csrc/power_iteration.cu",
         "replaces": "gan_lib_tensorflow_tpu/ops/pallas_kernels.py:63",
-        "launches": main_launches + cond_launches + mr_pi + tools_pi + folder_pi,
+        "launches": main_launches + cond_launches + mr_pi + tools_pi + folder_pi + tf1_pi,
         "max_abs_err": err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -26,15 +26,24 @@ there is no ``'sn'`` collection and no EMA.
 The input can be the state object itself after ``tree_map(np.asarray, ...)``
 or a mapping of its fields; optax states are read by their ``count``, ``mu``
 and ``nu`` fields, so neither optax nor JAX is imported here.
+
+The inverse view: ``flax_view(module)`` lists a port network as the
+reference's flax variables (collection, module path, leaf name and layout,
+read from each module's type) with the role the reference's TF1 importer
+gives each leaf, and ``load_flax_view`` writes flax-layout arrays back
+through ``to_torch_names``, so the layout rules stay in one place.
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, List, Mapping as MappingT, Tuple
 
 import numpy as np
 import torch
+
+from .ops.layers import Embedding, _Layer
+from .ops.norms import BatchNorm
 
 _LEAF_NAMES = {"kernel": "weight", "embedding": "weight", "scale": "weight",
                "bias": "bias", "u": "u", "mean": "running_mean", "var": "running_var"}
@@ -133,3 +142,79 @@ def load_jax_state(state, jax_state: Any) -> None:
              else getattr(jax_state, "alpha", None))
     if alpha is not None:
         state.alpha = float(np.asarray(alpha))
+
+
+# a port module's tensors by the flax leaf each is, and the collection of
+# the leaves that are not 'params'
+_FLAX_LEAVES = ((_Layer, {"weight": "kernel", "bias": "bias", "u": "u"}),
+                (Embedding, {"weight": "embedding", "u": "u"}),
+                (BatchNorm, {"weight": "scale", "bias": "bias", "running_mean": "mean",
+                             "running_var": "var"}))
+_COLLECTIONS = {"u": "sn", "mean": "batch_stats", "var": "batch_stats"}
+
+
+def _leaf_names(mod: torch.nn.Module) -> Dict[str, str]:
+    for kind, names in _FLAX_LEAVES:
+        if isinstance(mod, kind):
+            return names
+    raise ValueError(f"no flax counterpart for a {type(mod).__name__} module")
+
+
+def flax_role(leaf: str, siblings) -> str:
+    """The reference importer's role of a flax leaf (``tools/
+    import_tf1_checkpoint.py:84-97``): a ``bias`` beside a ``scale`` in its
+    module is a norm offset; any other leaf is its own role."""
+    if leaf == "bias":
+        return "bn_bias" if "scale" in siblings else "bias"
+    return leaf
+
+
+def flax_view(module: torch.nn.Module) -> List[Tuple[str, Tuple[str, ...], np.ndarray, str]]:
+    """``[(path, keys, array, role)]``: the port network as the reference's
+    flax variables (``'params'``, ``'sn'``, ``'batch_stats'``), float32
+    arrays in flax layout (conv kernels HWIO, Dense kernels ``[in, out]``,
+    embedding tables ``[num_embeddings, features]``), in the order
+    ``jax.tree_util`` flattens them (keys sorted at every level)."""
+    leaves: Dict[Tuple[str, ...], np.ndarray] = {}
+    for prefix, mod in module.named_modules():
+        own = dict(mod.named_parameters(recurse=False))
+        own.update(mod.named_buffers(recurse=False))
+        if not own:
+            continue
+        names = _leaf_names(mod)
+        mods = tuple(prefix.split(".")) if prefix else ()
+        for attr, t in own.items():
+            if attr not in names:
+                raise ValueError(f"no flax counterpart for {prefix}.{attr}")
+            leaf = names[attr]
+            arr = t.detach().to("cpu", torch.float32).numpy()
+            if leaf in ("kernel", "embedding"):
+                arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+            leaves[(_COLLECTIONS.get(leaf, "params"),) + mods + (leaf,)] = np.ascontiguousarray(arr)
+    siblings: Dict[Tuple[str, ...], set] = {}
+    for keys in leaves:
+        siblings.setdefault(keys[:-1], set()).add(keys[-1])
+    return [("/".join(keys), keys, leaves[keys], flax_role(keys[-1], siblings[keys[:-1]]))
+            for keys in sorted(leaves)]
+
+
+def load_flax_view(module: torch.nn.Module,
+                   arrays: MappingT[Tuple[str, ...], Any]) -> None:
+    """Copy ``{flax keys: array}`` (any subset of ``flax_view``'s leaves,
+    flax layout) into ``module`` in place, through ``to_torch_names``."""
+    trees: Dict[str, dict] = {}
+    for keys, arr in arrays.items():
+        node = trees.setdefault(keys[0], {})
+        for k in keys[1:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = arr
+    state = module.state_dict()
+    with torch.no_grad():
+        for tree in trees.values():
+            for name, arr in to_torch_names(tree).items():
+                if name not in state:
+                    raise KeyError(f"{name}: not a tensor of the {type(module).__name__}")
+                if tuple(state[name].shape) != arr.shape:
+                    raise ValueError(f"{name}: shape {arr.shape}, the module's is "
+                                     f"{tuple(state[name].shape)}")
+                state[name].copy_(torch.from_numpy(arr))

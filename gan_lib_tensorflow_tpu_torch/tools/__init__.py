@@ -13,4 +13,9 @@ counterpart's flags, defaults and JSON keys, on ``--device cuda`` unless
   and MFU against the H100's bf16 peak and a measured matmul rate
 - ``bench_eval``, ``bench_loader``, ``bench_kstep``: the eval accumulators,
   the loaders, and chained steps against one CUDA graph of K steps
+- ``import_tf1_checkpoint``: a reference TF1 ``Saver`` checkpoint -> the
+  port's step-0 checkpoint, read by ``tf1_bundle`` (a tensor-bundle reader
+  without TensorFlow)
+- ``report_run``: a run directory's ``log.jsonl`` and ``step_*.pt``
+  checkpoints -> the loss-curve-shape report
 """

@@ -77,10 +77,15 @@ class CheckpointManager:
         for old in self.steps()[:-self.max_to_keep]:
             os.remove(self.path(old))
 
+    @staticmethod
+    def steps_in(directory: str) -> List[int]:
+        """Steps of the complete checkpoints in ``directory``, oldest first."""
+        found = (_FILE.match(f) for f in os.listdir(directory))
+        return sorted(int(m.group(1)) for m in found if m)
+
     def steps(self) -> List[int]:
         """Steps of the complete checkpoints on disk, oldest first."""
-        found = (_FILE.match(f) for f in os.listdir(self.directory))
-        return sorted(int(m.group(1)) for m in found if m)
+        return self.steps_in(self.directory)
 
     def latest_step(self) -> Optional[int]:
         steps = self.steps()
