@@ -6,9 +6,9 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (each prints its own lines; any failure exits non-zero before the
 final line):
   1. device: torch's name for the card, and nvidia-smi's name and power limit
-  2. build: compile both hand-written kernels (nvcc, sm_90a) and the image
-     decoder (the host's C++ compiler) from csrc/, one compiler process per
-     source, started together
+  2. build: compile both hand-written kernels (nvcc, sm_90a) and the two
+     image decoders (JPEG/PNG and WebP; the host's C++ compiler) from csrc/,
+     one compiler process per source, started together
   3. power-iteration kernel vs plain: the batched power-iteration kernel
      against its plain PyTorch version on the card (sigma, u', v and
      d sigma / dW; rtol 1e-4, float32 with TF32 off), at the CIFAR-D,
@@ -219,7 +219,18 @@ final line):
      pggan`` at 256^2 with SWD reals from the flat folder; (f)
      ``tools/prepack_dataset`` on the fixtures (class folders, a flat
      ``--resolutions`` pyramid, ``--paired``): each store's sha256 equal to
-     the reference tool's in the manifest
+     the reference tool's in the manifest; (g) every committed WebP fixture
+     (``tests/torch_fixtures/webp/``: lossy under each loop filter and
+     partition count, lossless with every transform, alpha raw and
+     VP8L-compressed under each filter, animations) decoded by the
+     hand-written WebP decoder (``csrc/webpdec.cpp``, built with the host's
+     C++ compiler at first use): RGB and RGBA sha256 equal to what Pillow
+     gave, and the parts of the format each decode met; (h) one host
+     thread's decode rate (images/s, MP/s) on a lossy and a lossless 256^2
+     fixture; (i) a two-class folder of the WebP fixtures packed by
+     ``tools/prepack_dataset --size 128``, and ``cli.train_sngan_imagenet
+     --data <store>`` at full width for 2 fused steps: 12 power-iteration
+     launches, each held against the plain version on the same W and u
  19. TF1 checkpoints without TensorFlow (``tools/tf1_bundle.py``, the
      hand-written tensor-bundle reader, and ``tools/import_tf1_checkpoint``):
      (a) every committed TensorFlow-written bundle
@@ -244,12 +255,19 @@ final line):
      ImageNet-128 at full width (1000 classes; 326 MB of float32): the
      bundle read alone (MB/s) and the whole tool timed, every tensor its
      source, and the first power-iteration launch on the imported D's 19
-     weights against the plain version (rtol 1e-4)
+     weights against the plain version (rtol 1e-4); (a) also reads the V1
+     fixtures (one table file, two shards through their pattern) and the
+     V2 one of every other dtype and strings, and refuses what TensorFlow's
+     V1 reader refuses; (d) SNGAN CIFAR-10 at full width written by the
+     test scaffolding writer as V1 and as V2 with the same values and a
+     kept string, uint8 and int16 variable: both imported by the port's
+     tool, equal reports, the two step-0 checkpoints byte-equal
 
 The power iteration's ``launches`` in the kernels' record are those of
 phase 5's SNGAN run, phase 12's conditional SNGAN run, every run of
 phase 15 (each rank's and the one-rank runs'), the runs of phase 17's
-tools and ``--data`` words, phase 18's ImageNet-128 runs and phase 19's
+tools and ``--data`` words, phase 18's ImageNet-128 runs (from the class
+folder and from the WebP store) and phase 19's
 loop-level resume of the imported SNGAN (``train_loop`` called directly:
 no CLI resumes an import); the
 fade-in's are those of phase 6's ladder, phase 14's ladder (b), the ladders
@@ -346,6 +364,13 @@ FOLDER_LADDER_RES = 256
 FOLDER_1024_TIMED = 6
 DEVICE_PREFETCH = 2  # prefetch_to_device's depth
 DECODE_SECONDS = 0.5  # per format, for its decode rate
+# WebP (phase 18 g-i): the committed fixtures and their manifest
+# (tests/torch_fixtures/webp/make_fixtures.py, Pillow and libwebp), the two
+# 256^2 files timed, and the ImageNet-128 run from their packed folder
+WEBP_FIXTURES = os.path.join("tests", "torch_fixtures", "webp")
+WEBP_RATE_FILES = ("lossy_256_q75.webp", "lossless_256.webp")
+WEBP_COPIES = 5  # of every fixture in each class: 340 files, one fused step's 320
+WEBP_STEPS = 2
 # TF1 checkpoints (phase 19): the committed TensorFlow-written bundles and
 # their manifest, and the steps of the SNGAN run resumed from an import
 TF1_FIXTURES = os.path.join("tests", "torch_fixtures", "tf1")
@@ -2941,7 +2966,114 @@ def image_folders(card: str, tmp: str) -> tuple:
               f"prepack {name}: store sha256 differs from the reference tool's")
     print(f"tools/prepack_dataset on the fixtures: {', '.join(sorted(manifest['stores']))} "
           "stores byte-equal to the reference tool's (sha256)")
+    pi_total += webp_folder(host, tmp)
     return pi_total, fd_total
+
+
+def webp_folder(host: str, tmp: str) -> int:
+    """Phase 18 (g)-(i): the WebP decoder on the committed fixtures, its
+    decode rates, and ImageNet-128 trained from a store packed from a WebP
+    folder. Returns the power-iteration launches of that run."""
+    import hashlib
+    import shutil as sh
+
+    import numpy as np
+    import torch
+    from gan_lib_tensorflow_tpu_torch.cli import train_sngan_imagenet
+    from gan_lib_tensorflow_tpu_torch.data import codec
+    from gan_lib_tensorflow_tpu_torch.ops import power_iteration as pi
+    from gan_lib_tensorflow_tpu_torch.tools import prepack_dataset
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), WEBP_FIXTURES)
+    with open(os.path.join(root, "manifest.json")) as f:
+        manifest = json.load(f)
+    files = manifest["files"]
+
+    def sha(a) -> str:
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    # (g) every WebP fixture, RGB and RGBA, and what its decode met
+    bad = []
+    for name, want in sorted(files.items()):
+        path = os.path.join(root, name)
+        rgb = codec.decode_rgb(path)
+        if list(rgb.shape) != want["shape"] or sha(rgb) != want["rgb_sha256"]:
+            bad.append(f"{name}: RGB {list(rgb.shape)} differs from Pillow's decode")
+        if sha(codec.decode_webp_rgba(path)) != want["rgba_sha256"]:
+            bad.append(f"{name}: RGBA differs from Pillow's")
+        if codec.webp_features(path) != want["features"]:
+            bad.append(f"{name}: the decode met {codec.webp_features(path)}, want "
+                       f"{want['features']}")
+    for line in bad:
+        print(f"MISMATCH {line}")
+    check(not bad, f"{len(bad)} WebP decodes differ from the reference's")
+    print(f"WebP decoder (csrc/webpdec.cpp): {len(files)} fixtures (lossy, lossless, alpha, "
+          f"animations) decoded as Pillow {manifest['pillow']} / libwebp {manifest['libwebp']} "
+          f"decodes them: RGB and RGBA sha256 equal  [{host}]")
+
+    # (h) one host thread's decode rate on the two 256^2 fixtures
+    for name in WEBP_RATE_FILES:
+        path = os.path.join(root, name)
+        with open(path, "rb") as f:
+            size = len(f.read())
+        n = pixels = 0
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < DECODE_SECONDS:
+            pixels += codec.decode_rgb(path).size // 3
+            n += 1
+        dt = time.perf_counter() - t0
+        print(f"decode {name} ({size} bytes, {'x'.join(map(str, files[name]['shape'][:2]))}): "
+              f"{n / dt:.1f} images/s, {pixels / dt / 1e6:.2f} MP/s, one thread  [{host}]")
+
+    # (i) a two-class folder of the fixtures, packed, and ImageNet-128 on it
+    folder = os.path.join(tmp, "webp_classes")
+    for c, wnid in enumerate(("n01440764", "n01443537")):
+        os.makedirs(os.path.join(folder, wnid))
+        for k in range(WEBP_COPIES):
+            for name in sorted(files):
+                sh.copy(os.path.join(root, name),
+                        os.path.join(folder, wnid, f"{k}_{name}"))
+    store = os.path.join(tmp, "webp_store")
+    t0 = time.perf_counter()
+    prepack_dataset.main(["--src", folder, "--out", store, "--size", "128"])
+    pack_s = time.perf_counter() - t0
+    with open(os.path.join(store, "meta.json")) as f:
+        meta = json.load(f)
+    check(meta["n"] == 2 * WEBP_COPIES * len(files) and meta["num_classes"] == 2,
+          f"the WebP store: {meta}")
+    errs = []
+    launch = pi.launch
+
+    def held(weights, us, write_u=False, table=None):
+        """The kernel, then its plain version on the same W and u."""
+        u0 = [u.detach().clone() for u in us]
+        out = launch(weights, us, write_u, table)
+        plain, _, _ = pi.plain_power_iteration([w.detach() for w in weights], u0)
+        torch.testing.assert_close(out[0], plain, rtol=1e-4, atol=0.0)
+        errs.append(float((out[0] - plain).abs().max()))
+        return out
+
+    pi.launches = 0
+    pi.launch = held
+    try:
+        state = train_sngan_imagenet.main([
+            "--data", store, "--device", "cuda", "--steps", str(WEBP_STEPS), "--log-every", "1",
+            "--sample-every", "1000", "--ckpt-every", "1000", "--compute-dtype", "bf16",
+            "--out-dir", os.path.join(tmp, "webp_run")])
+        torch.cuda.synchronize()
+    finally:
+        pi.launch = launch
+    launches = pi.launches
+    check(state.step == WEBP_STEPS and launches == (N_CRITIC + 1) * WEBP_STEPS
+          and len(errs) == launches,
+          f"ImageNet-128 from the WebP store: step {state.step}, {launches} launches")
+    del state
+    print(f"tools/prepack_dataset --size 128 on a two-class folder of {meta['n']} WebP files "
+          f"(the fixtures, {WEBP_COPIES} copies a class): {pack_s:.2f} s; "
+          f"cli.train_sngan_imagenet --data <that store> at full width: {WEBP_STEPS} fused steps, "
+          f"{launches} power-iteration launches, each against the plain version (rtol 1e-4, "
+          f"max abs err {max(errs):.3e})  [{host}]")
+    return launches
 
 
 def tf1_writer():
@@ -3008,8 +3140,6 @@ def tf1_checkpoints(card: str, tmp: str) -> int:
     refuses the imported checkpoint (it holds no lr schedule), as the
     reference's ``train_sngan`` refuses its tool's, and ``cli.sample`` and
     ``cli.evaluate``, which take the import, run no D."""
-    import hashlib
-
     import numpy as np
     import torch
     from gan_lib_tensorflow_tpu_torch.cli import common, sample, train_sngan
@@ -3020,21 +3150,31 @@ def tf1_checkpoints(card: str, tmp: str) -> int:
     from gan_lib_tensorflow_tpu_torch.train import (CheckpointManager, LoopConfig, create_state,
                                                     make_train_step, train_loop)
 
-    # (a) the committed TensorFlow-written bundles against their manifest
+    # (a) the committed TensorFlow-written checkpoints against their manifest
     with open(os.path.join(TF1_FIXTURES, "manifest.json")) as f:
         manifest = json.load(f)
-    n_tensors = 0
+    bundle_writer = tf1_writer()
+    n_tensors, n_refused, formats = 0, 0, {}
     for key, entry in sorted(manifest["bundles"].items()):
         with tf1_bundle.open_bundle(os.path.join(TF1_FIXTURES, entry["prefix"])) as bundle:
+            formats[entry["format"]] = formats.get(entry["format"], 0) + 1
             check(set(bundle.variables) == set(entry["tensors"]), f"{key}: other tensors listed")
             for name, want in entry["tensors"].items():
                 dtype, shape = bundle.variables[name]
                 check((dtype, list(shape)) == (want["dtype"], want["shape"]),
                       f"{key} {name}: {dtype} {shape}, the manifest's {want}")
                 if "sha256" in want:
-                    got = hashlib.sha256(bundle.read(name).tobytes()).hexdigest()
+                    got = bundle_writer.digest(bundle.read(name))
                     check(got == want["sha256"], f"{key} {name}: sha256 differs from TensorFlow's")
                     n_tensors += 1
+                else:  # TensorFlow's V1 reader refuses it: so does the port's
+                    try:
+                        bundle.read(name)
+                    except tf1_bundle.BundleError as e:
+                        check(want["refused"] in str(e), f"{key} {name}: refused with {e}")
+                        n_refused += 1
+                    else:
+                        check(False, f"{key} {name}: read, where TensorFlow refuses it")
     for fault, target in (("data", ".data-00000-of-00001"), ("index", ".index")):
         copy = os.path.join(tmp, f"corrupt_{fault}")
         shutil.copytree(os.path.join(TF1_FIXTURES, "dtypes"), copy)
@@ -3054,15 +3194,17 @@ def tf1_checkpoints(card: str, tmp: str) -> int:
         else:
             check(False, f"a flipped {fault} byte was not refused")
     rate_prefix = os.path.join(tmp, "rate", "model.ckpt")
-    bundle_writer = tf1_writer()
     bundle_writer.write_bundle(rate_prefix, {"gen/w": np.random.default_rng(0).standard_normal(
         TF1_RATE_BYTES // 4, dtype=np.float32)})
     t0 = time.perf_counter()
     tf1_bundle.read_tf_checkpoint(rate_prefix)
     rate = TF1_RATE_BYTES / (time.perf_counter() - t0) / 1e6
-    print(f"(a) the committed TensorFlow 2.21 bundles ({len(manifest['bundles'])}: every dtype, "
-          f"partitioned variables, two shards, a TF2 object graph): {n_tensors} tensors equal to "
-          f"the manifest's sha256; a flipped data byte and a flipped index byte each refused "
+    print(f"(a) the committed TensorFlow 2.21 checkpoints ({formats.get('V2', 0)} V2 bundles: "
+          f"every dtype, strings, partitioned variables, two shards, a TF2 object graph; "
+          f"{formats.get('V1', 0)} V1 table sets: every dtype TensorFlow's V1 reader returns, two "
+          f"shards through their pattern): {n_tensors} tensors equal to the manifest's sha256, "
+          f"{n_refused} that TensorFlow refuses refused alike; a flipped data byte and a flipped "
+          f"index byte each refused "
           f"(CRC32C); reader {rate:.1f} MB/s on one {TF1_RATE_BYTES}-byte float32 tensor (host, "
           f"numpy CRC32C, {os.cpu_count()} CPUs)", flush=True)
 
@@ -3170,6 +3312,52 @@ def tf1_checkpoints(card: str, tmp: str) -> int:
           f"{n_checked} tensors equal to their sources; the first power-iteration launch on "
           f"the imported D's {len(d.sn_layers)} weights against the plain version max abs "
           f"err {sigma_err_in:.3e} (rtol 1e-4)  [{card}]", flush=True)
+    del d
+
+    # (d) SNGAN CIFAR-10 at full width as V1 and as V2, with kept variables
+    # of other dtypes: the same step-0 checkpoint from both
+    g, d = sngan.cifar_generator(), sngan.cifar_discriminator()
+    named = (bundle_writer.tflib_variables(g, "Generator", 29)
+             + bundle_writer.tflib_variables(d, "Discriminator", 30))
+    shapes = {p: v.shape for _, p, v in named}
+    rng = np.random.default_rng(31)
+    d_dense = next(v.shape for n, _, v in named if n.startswith("Disc") and v.ndim == 2)
+    g_last = max((p for p in shapes if p.startswith("params/conv")), key=imp._natkey)
+    tensors = {n: v for n, _, v in named}
+    tensors.update({  # 'Gen/' and 'Dis/' sort first in their (role, shape) groups
+        "Gen/note": np.array(b"100000 steps on CIFAR-10"),
+        "Gen/mask": rng.integers(0, 256, shapes[g_last]).astype(np.uint8),
+        "Dis/counts": rng.integers(-32768, 32768, d_dense).astype(np.int16),
+        "Generator.00.W/Adam": np.zeros(named[0][2].shape, np.float32),
+        "global_step": np.int64(100_000)})
+    t0 = time.perf_counter()
+    sources = {"V1": bundle_writer.write_v1(os.path.join(tmp, "v1", "model.ckpt"), tensors),
+               "V2": bundle_writer.write_bundle(os.path.join(tmp, "v2", "model.ckpt"), tensors)}
+    write_s = time.perf_counter() - t0
+    reports, ckpts, times = {}, {}, {}
+    for fmt, prefix in sources.items():
+        out = os.path.join(tmp, f"imported_{fmt}")
+        t0 = time.perf_counter()
+        check(imp.main(["--ckpt", prefix, "--model", "sngan", "--out-dir", out]) == 0,
+              f"the {fmt} import failed")
+        times[fmt] = time.perf_counter() - t0
+        with open(os.path.join(out, "import_report.json")) as f:
+            reports[fmt] = json.load(f)
+        reports[fmt].pop("checkpoint")  # the path given
+        with open(os.path.join(out, "ckpt", "step_000000.pt"), "rb") as f:
+            ckpts[fmt] = f.read()
+    matched = {m["tf"] for net in ("generator", "discriminator")
+               for m in reports["V1"][net]["matched"]}
+    check(reports["V1"] == reports["V2"] and {"Gen/mask", "Dis/counts"} <= matched
+          and "Gen/note" in reports["V1"]["generator"]["unmatched_tf"],
+          f"the V1 and V2 reports differ, or a kept variable is not where expected: {reports}")
+    check(ckpts["V1"] == ckpts["V2"], "the step-0 checkpoints of the V1 and V2 imports differ")
+    print(f"(d) SNGAN CIFAR-10 at full width written as V1 ({os.path.getsize(sources['V1'])} "
+          f"bytes, one table file) and as V2 by the test scaffolding writer in {write_s:.2f} s, "
+          f"with a string, a uint8 and an int16 variable beside the weights: imported in "
+          f"{times['V1']:.2f} s and {times['V2']:.2f} s, reports equal (the uint8 and int16 "
+          f"variables matched and cast to float32, the string listed), the two "
+          f"{len(ckpts['V1'])}-byte step-0 checkpoints byte-equal  [{card}]", flush=True)
     return launches
 
 
@@ -3209,12 +3397,12 @@ def main() -> None:
 
     phase("2 build")
     t0 = time.perf_counter()
-    libraries = [pi.library, fd.library, codec.library]
+    libraries = [pi.library, fd.library, codec.library, codec.webp_library]
     with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
         for fut in [pool.submit(lib.load) for lib in libraries]:
             fut.result()
     build_s = time.perf_counter() - t0
-    print(f"kernels and the image decoder build+load (nvcc x2 and the host C++ compiler, "
+    print(f"kernels and the image decoders build+load (nvcc x2 and the host C++ compiler x2, "
           f"in parallel): {build_s:.2f} s")
     for lib in libraries:
         for line in lib.build_log.splitlines():

@@ -6,9 +6,13 @@ byte to what the reference's loaders get from Pillow
   (baseline and progressive Huffman, libjpeg's islow IDCT, fancy upsampling
   and YCbCr tables), built at first use by ``ops/cuda_lib.py`` with the
   host's C++ compiler; PNG inflated by ``zlib`` and unfiltered by the same
-  library; uncompressed BMP in numpy. What it cannot decode (WebP,
-  arithmetic-coded, 12-bit or lossless JPEG, compressed BMP, a truncated or
-  corrupt file) raises ``ValueError`` naming the file. Nothing falls back.
+  library; uncompressed BMP in numpy; WebP (lossy VP8, lossless VP8L,
+  alpha, the extended and animated formats) through the hand-written
+  decoder ``csrc/webpdec.cpp``: the RGB of the first frame on its canvas,
+  as Pillow's animation decoder gives it. What it cannot decode
+  (arithmetic-coded, 12-bit or lossless JPEG, compressed BMP, a WebP frame
+  that is not a key frame, a truncated or corrupt file) raises
+  ``ValueError`` naming the file. Nothing falls back.
 - ``crop`` and ``resize_bilinear``: Pillow's box convention and its
   ``BILINEAR`` resample (``Resample.c``: an antialiased triangle of support
   ``max(in / out, 1)``, 22-bit fixed-point weights, the horizontal pass
@@ -47,7 +51,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gl_png_unfilter.restype = ctypes.c_int
 
 
+def _declare_webp(lib: ctypes.CDLL) -> None:
+    u8p, ip = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int)
+    lib.gl_webp_info.argtypes = [u8p, ctypes.c_size_t, ip, ip]
+    lib.gl_webp_info.restype = ctypes.c_int
+    lib.gl_webp_decode.argtypes = [u8p, ctypes.c_size_t, u8p, ctypes.c_int, ctypes.c_int,
+                                   ctypes.POINTER(ctypes.c_int32)]
+    lib.gl_webp_decode.restype = ctypes.c_int
+
+
 library = KernelLibrary("imgcodec", _declare, suffix=".cpp")
+webp_library = KernelLibrary("webpdec", _declare_webp, suffix=".cpp")
 
 
 def _ptr(a: np.ndarray):
@@ -68,6 +82,52 @@ def _decode_jpeg(buf: bytes, path: str) -> np.ndarray:
     out = np.empty((h.value, w.value, 3), np.uint8)
     _check(lib, lib.gl_jpeg_decode(_ptr(data), data.size, _ptr(out), w.value, h.value), path)
     return out
+
+
+def _decode_webp(buf: bytes, path: str, features=None) -> np.ndarray:
+    """RGBA uint8 ``[H, W, 4]`` of the first frame on its canvas; with
+    ``features`` (a ctypes int32 array of ``len(WEBP_FEATURES)``) also what
+    the decode met."""
+    lib = webp_library.load()
+    data = np.frombuffer(buf, np.uint8)
+    w, h = ctypes.c_int(), ctypes.c_int()
+    _check(lib, lib.gl_webp_info(_ptr(data), data.size, ctypes.byref(w), ctypes.byref(h)), path)
+    out = np.empty((h.value, w.value, 4), np.uint8)
+    _check(lib, lib.gl_webp_decode(_ptr(data), data.size, _ptr(out), w.value, h.value,
+                                   features), path)
+    return out
+
+
+def _read_webp(path: str) -> bytes:
+    with open(path, "rb") as f:
+        buf = f.read()
+    if not _is_webp(buf):
+        raise ValueError(f"{path}: not a WebP file")
+    return buf
+
+
+def decode_webp_rgba(path: str) -> np.ndarray:
+    """A WebP file as Pillow's ``Image.open(path).convert("RGBA")``: the
+    non-premultiplied RGBA of its first frame on its canvas."""
+    return _decode_webp(_read_webp(path), path)
+
+
+WEBP_FEATURES = ("lossless", "predictors", "filter", "partitions", "segments", "sharpness",
+                 "alpha", "flags")
+
+
+def webp_features(path: str) -> dict:
+    """The parts of the format a WebP file's decode met (``csrc/webpdec.cpp``
+    ``Features``: VP8L transforms, codes and predictor modes, the VP8 loop
+    filter, partitions, segments and sharpness, the ALPH method and filter,
+    the container): a test's check of what its fixtures cover."""
+    out = (ctypes.c_int32 * len(WEBP_FEATURES))()
+    _decode_webp(_read_webp(path), path, out)
+    return dict(zip(WEBP_FEATURES, out))
+
+
+def _is_webp(buf: bytes) -> bool:
+    return buf[:4] == b"RIFF" and buf[8:12] == b"WEBP"
 
 
 def _png_chunks(buf: bytes, path: str):
@@ -157,9 +217,9 @@ def decode_rgb(path: str) -> np.ndarray:
         return _decode_png(buf, path)
     if buf[:2] == b"BM":
         return _decode_bmp(buf, path)
-    if buf[:4] == b"RIFF" and buf[8:12] == b"WEBP":
-        raise ValueError(f"{path}: WebP is not supported (no VP8 decoder here)")
-    raise ValueError(f"{path}: not a JPEG, PNG or BMP file")
+    if _is_webp(buf):
+        return np.ascontiguousarray(_decode_webp(buf, path)[:, :, :3])
+    raise ValueError(f"{path}: not a JPEG, PNG, BMP or WebP file")
 
 
 def crop(u8: np.ndarray, box: Tuple[int, int, int, int]) -> np.ndarray:

@@ -2,10 +2,11 @@
 (port of ``tools/import_tf1_checkpoint.py``), without TensorFlow.
 
 A user migrating from ``GAN_Lib_Tensorflow`` keeps a trained model: the
-bundle is read by ``tools/tf1_bundle.py`` (a hand-written reader of the
-tensor-bundle format, CRC32C checked), the variables are mapped onto the
-target model by the reference's matcher, and a step-0 checkpoint in the
-port's format is written under ``OUT/ckpt`` (``train/checkpoint.py``).
+checkpoint (a V2 bundle or V1 table files, every dtype TensorFlow returns)
+is read by ``tools/tf1_bundle.py`` (a hand-written reader, CRC32C
+checked), the variables are mapped onto the target model by the
+reference's matcher, and a step-0 checkpoint in the port's format is
+written under ``OUT/ckpt`` (``train/checkpoint.py``).
 
 Mapping contract (the reference's, unchanged):
 
@@ -299,10 +300,15 @@ def main(argv=None) -> int:
             f"to keep their fresh initialization")
 
     # the seed-0 init (kept by unmatched leaves), then the imported values
+    # each matched value cast to its leaf's float32 as the reference casts it
+    # (``astype``: a complex value loses its imaginary part with numpy's
+    # warning, a string that is no number raises numpy's ValueError)
+    g_assign = {k: v.astype(np.float32) for k, v in g_assign.items()}
+    d_assign = {k: v.astype(np.float32) for k, v in d_assign.items()}
     state = create_state(g, d, lr=2e-4, beta1=0.0, beta2=0.9, ema_decay=EMA_DECAY,
                          seed=0, device=args.device)
     g_vars = {keys: arr for _, keys, arr, _ in flax_view(state.g)}
-    g_vars.update({k: np.asarray(v, np.float32) for k, v in g_assign.items()})
+    g_vars.update(g_assign)
     if args.nchw_boundary:
         g_vars = nchw_boundary_fixups(g_vars, args.model)
     load_flax_view(state.g, g_vars)

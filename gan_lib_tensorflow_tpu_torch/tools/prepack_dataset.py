@@ -13,10 +13,11 @@ Inputs:
     store of ``[N, size, 2 * size, 3]`` rows, each half resized to --size
 
 Images (``.jpg .jpeg .png .bmp .webp``, by lower-cased extension, sorted)
-are decoded by ``data/codec.py`` (the hand-written JPEG/PNG decoder),
-center-cropped to their short side and resized to --size with Pillow's
-bilinear resample; a file it cannot decode (WebP among them) stops the tool
-with a ``ValueError`` naming it. With ``--resolutions`` the output is a
+are decoded by ``data/codec.py`` (the hand-written JPEG, PNG and WebP
+decoders, bit-equal to Pillow), center-cropped to their short side and
+resized to --size with Pillow's bilinear resample; a file it cannot decode
+(a truncated or corrupt one) stops the tool with a ``ValueError`` naming
+it. With ``--resolutions`` the output is a
 PGGAN pyramid store (members ``r{res:04d}/``): each chunk of the top level
 is box-downsampled by 2 in float32 level after level (``data/multires.py``)
 and rounded to uint8.

@@ -1,6 +1,7 @@
-"""Read a TensorFlow tensor bundle without TensorFlow: the V2 checkpoint
+"""Read a TensorFlow checkpoint without TensorFlow: the V2 tensor bundle
 that ``tf.compat.v1.train.Saver`` (and ``tf.train.Checkpoint``) writes as
-``<prefix>.index`` plus ``<prefix>.data-<shard>-of-<num_shards>``.
+``<prefix>.index`` plus ``<prefix>.data-<shard>-of-<num_shards>``, and the
+V1 table files of ``SaverDef.V1``.
 
 The index is a LevelDB-format table (TensorFlow's ``lib/io/table``): a
 48-byte footer (the metaindex and index block handles as varints, zero
@@ -27,17 +28,32 @@ tables (one vectorised step per word position), and the lanes' CRCs are
 joined pairwise by the GF(2) operator that appends a run of zero bytes
 (zlib's ``crc32_combine``). Short inputs take the plain byte loop.
 
+Every dtype ``tf.train.load_checkpoint(...).get_tensor`` returns is read:
+the numbers little-endian, a string tensor as an object array of ``bytes``
+(a string scalar as numpy makes ``bytes``: an ``S`` array). A string
+tensor's bytes are a varint64 length per element, the masked CRC32C of the
+lengths, then the strings; both checksums are checked.
+
+The V1 format (``SaverDef.V1``: one table file per shard, no ``.index``)
+is read by ``TableCheckpoint`` from the same table code: its meta entry
+names the tensors and their slices, and each slice's values sit in the
+typed repeated fields of a ``TensorProto``. As TensorFlow's reader, it
+returns float32, float64, int32, int64, uint8, int16, int8, bool and
+string tensors saved whole, and refuses other dtypes and partitioned
+variables by name. TensorFlow's V1 writer builds its tables uncompressed,
+as its bundle writer does; a compressed block is refused by name.
+
 ``read_tf_checkpoint`` applies the reference importer's ``DROP`` filter
 (``tools/import_tf1_checkpoint.py:56-58``) before any tensor is decoded,
 so a TF2 object graph (``_CHECKPOINTABLE_OBJECT_GRAPH``, a string) is
-listed and dropped, never parsed. A V1 checkpoint (one table file with no
-``.index``) is refused by name: only TensorFlow reads that format.
+listed and dropped, never parsed.
 """
 
 from __future__ import annotations
 
 import codecs
 import functools
+import glob
 import os
 import re
 from typing import Dict, Iterator, List, Tuple
@@ -58,9 +74,12 @@ BUNDLE_VERSION = 1  # tensor_bundle.h kTensorBundleVersion
 # DataType enum numbers (tensorflow/core/framework/types.proto) -> name and
 # the little-endian numpy dtype of the stored bytes
 DTYPES = {1: ("float32", "<f4"), 2: ("float64", "<f8"), 3: ("int32", "<i4"),
-          9: ("int64", "<i8"), 10: ("bool", "|b1"), 14: ("bfloat16", "<u2"),
-          19: ("float16", "<f2")}
+          4: ("uint8", "|u1"), 5: ("int16", "<i2"), 6: ("int8", "|i1"),
+          8: ("complex64", "<c8"), 9: ("int64", "<i8"), 10: ("bool", "|b1"),
+          14: ("bfloat16", "<u2"), 17: ("uint16", "<u2"), 18: ("complex128", "<c16"),
+          19: ("float16", "<f2"), 22: ("uint32", "<u4"), 23: ("uint64", "<u8")}
 DT_STRING = 7
+DT_BFLOAT16 = 14
 
 
 class BundleError(ValueError):
@@ -338,7 +357,7 @@ def _read_block(index: bytes, offset: int, size: int, what: str) -> bytes:
                           "(the index file is corrupt)")
     if kind != 0:
         raise BundleError(f"{what}: block compression type {kind} at offset {offset}; "
-                          "only 0 (none), which TensorFlow's bundle writer uses, is read")
+                          "only 0 (none), which TensorFlow's checkpoint writers use, is read")
     return index[offset:offset + size]
 
 
@@ -383,12 +402,13 @@ def _table_entries(index: bytes, path: str) -> Iterator[Tuple[bytes, bytes]]:
 
 
 def resolve_prefix(path: str) -> str:
-    """The bundle prefix of ``path``: a prefix as ``Saver.save`` returned
-    it, or a directory whose ``checkpoint`` file names the newest one (as
-    ``tf.train.load_checkpoint`` takes it). The ``checkpoint`` file is
-    protobuf text format: its string holds UTF-8 bytes, raw or escaped as
-    C escapes (``\\303\\251``), so it is unescaped to bytes and then decoded.
-    A V1 checkpoint is refused."""
+    """The checkpoint ``path`` names, as ``tf.train.load_checkpoint`` takes
+    it: a V2 prefix as ``Saver.save`` returned it, a V1 file pattern (one
+    table file, or the ``-?????-of-NNNNN`` pattern of its shards), or a
+    directory whose ``checkpoint`` file names the newest one. The
+    ``checkpoint`` file is protobuf text format: its string holds UTF-8
+    bytes, raw or escaped as C escapes (``\\303\\251``), so it is unescaped
+    to bytes and then decoded."""
     if os.path.isdir(path):
         state = os.path.join(path, "checkpoint")
         if not os.path.exists(state):
@@ -399,13 +419,78 @@ def resolve_prefix(path: str) -> str:
             raise BundleError(f"{state}: no model_checkpoint_path")
         found = codecs.escape_decode(m.group(1))[0].decode("utf-8")
         path = found if os.path.isabs(found) else os.path.join(path, found)
-    if os.path.exists(path + ".index"):
+    if os.path.exists(path + ".index") or _v1_files(path):
         return path
-    if os.path.isfile(path) or re.search(r"-\d{5}-of-\d{5}$", path):
-        raise BundleError(f"{path}: a V1 checkpoint (one table file, no .index); only "
-                          "TensorFlow reads that format: re-save it as V2 "
-                          "(tf.compat.v1.train.Saver's default) first")
-    raise FileNotFoundError(f"{path}.index: no such tensor bundle")
+    raise FileNotFoundError(f"{path}: no tensor bundle ({path}.index) and no V1 table file "
+                            "matches it")
+
+
+def _v1_files(pattern: str) -> List[str]:
+    """The files a V1 pattern matches (TensorFlow's ``GetMatchingPaths``:
+    ``*``, ``?`` and ``[...]``), sorted."""
+    return sorted(p for p in glob.glob(pattern) if os.path.isfile(p))
+
+
+def _strings(buf: bytes, count: int, name: str) -> Tuple[np.ndarray, bytes]:
+    """A bundle's string tensor (``WriteStringTensor``: a varint64 length
+    per element, the masked CRC32C of the lengths, then the bytes) -> (an
+    object array of ``bytes``, the bytes its entry's CRC32C covers). Both
+    CRCs take each length as a little-endian uint32 (a uint64 above
+    ``UINT32_MAX``), and the entry's then the masked length CRC and the
+    strings."""
+    lengths, pos = [], 0
+    for _ in range(count):
+        n, pos = _varint(buf, pos)
+        lengths.append(n)
+    if pos + 4 + sum(lengths) != len(buf):
+        raise BundleError(f"tensor {name!r}: {len(buf)} bytes for {count} strings of "
+                          f"{sum(lengths)} bytes")
+    as_ints = b"".join(n.to_bytes(4 if n <= 0xFFFFFFFF else 8, "little") for n in lengths)
+    if unmask_crc(int.from_bytes(buf[pos:pos + 4], "little")) != crc32c(as_ints):
+        raise BundleError(f"tensor {name!r}: string lengths CRC32C mismatch "
+                          "(the data file is corrupt)")
+    out = np.empty(count, object)
+    start = pos + 4
+    for i, n in enumerate(lengths):
+        out[i] = buf[start:start + n]
+        start += n
+    return out, as_ints + buf[pos:]
+
+
+def _native(arr: np.ndarray, dtype: int) -> np.ndarray:
+    """Stored values -> native byte order (bfloat16 widened exactly to
+    float32, the top half of its bits)."""
+    if dtype == DT_BFLOAT16:
+        return (arr.astype(np.uint32) << 16).view(np.float32)
+    return arr.astype(arr.dtype.newbyteorder("="), copy=False)
+
+
+def _as_tensorflow_returns(arr: np.ndarray) -> np.ndarray:
+    """``np.asarray(reader.get_tensor(name))``: TensorFlow hands a string
+    scalar back as ``bytes``, which numpy makes an ``S`` array; a string
+    tensor of rank >= 1 stays an object array of ``bytes``."""
+    if arr.dtype == object and arr.ndim == 0:
+        return np.asarray(arr[()])
+    return arr
+
+
+def _assemble(name: str, shape: Tuple[int, ...],
+              parts: List[Tuple[List[Tuple[int, int]], np.ndarray]]) -> np.ndarray:
+    """A partitioned variable from its ``(extents, values)`` slices, which
+    must cover it exactly once."""
+    out, covered = None, 0
+    for extents, part in parts:
+        if out is None:
+            out = np.empty(shape, part.dtype)
+        index = tuple(slice(None) if n < 0 else slice(s, s + n) for s, n in extents)
+        if out[index].shape != part.shape:
+            raise BundleError(f"tensor {name!r}: slice {extents} holds {part.shape}")
+        out[index] = part
+        covered += part.size
+    if out is None or covered != out.size:
+        raise BundleError(f"tensor {name!r}: its slices cover {covered} of "
+                          f"{int(np.prod(shape, dtype=np.int64))} values")
+    return out
 
 
 class Bundle:
@@ -475,60 +560,178 @@ class Bundle:
         return self._shards[shard_id]
 
     def _decode(self, name: str, entry: Entry) -> np.ndarray:
-        if entry.dtype not in DTYPES:
+        if entry.dtype != DT_STRING and entry.dtype not in DTYPES:
             raise BundleError(f"tensor {name!r} has dtype {dtype_name(entry.dtype)}, "
                               "which this reader does not decode")
-        stored = np.dtype(DTYPES[entry.dtype][1])
         count = int(np.prod(entry.shape, dtype=np.int64))
-        if entry.size != count * stored.itemsize:
-            raise BundleError(f"tensor {name!r}: {entry.size} bytes for shape "
-                              f"{entry.shape} of {dtype_name(entry.dtype)}")
         data = self._shard(entry.shard_id)
         if entry.offset < 0 or entry.offset + entry.size > data.size:
             raise BundleError(f"tensor {name!r}: bytes [{entry.offset}, "
                               f"{entry.offset + entry.size}) past the end of shard "
                               f"{entry.shard_id}")
         raw = data[entry.offset:entry.offset + entry.size]
-        if crc32c(raw) != unmask_crc(entry.crc32c):
+        if entry.dtype == DT_STRING:
+            arr, checked = _strings(raw.tobytes(), count, name)
+        else:
+            stored = np.dtype(DTYPES[entry.dtype][1])
+            if entry.size != count * stored.itemsize:
+                raise BundleError(f"tensor {name!r}: {entry.size} bytes for shape "
+                                  f"{entry.shape} of {dtype_name(entry.dtype)}")
+            arr, checked = np.array(raw).view(stored), raw
+        if crc32c(checked) != unmask_crc(entry.crc32c):
             raise BundleError(f"tensor {name!r}: data CRC32C mismatch in shard "
                               f"{entry.shard_id} (the data file is corrupt)")
-        arr = np.array(raw).view(stored).reshape(entry.shape)
-        if entry.dtype == 14:  # bfloat16: the top half of a float32
-            arr = (arr.astype(np.uint32) << 16).view(np.float32)
-        return arr.astype(arr.dtype.newbyteorder("="), copy=False)
+        return _native(arr.reshape(entry.shape), entry.dtype)
 
     def read(self, name: str) -> np.ndarray:
         entry = self._entries.get(name)
         if entry is None:
             raise KeyError(f"{name!r} is not in the bundle {self.prefix}")
         if not entry.slices:
-            return self._decode(name, entry)
-        if entry.dtype not in DTYPES:
-            raise BundleError(f"tensor {name!r} has dtype {dtype_name(entry.dtype)}, "
-                              "which this reader does not decode")
-        out = None
-        covered = 0
+            return _as_tensorflow_returns(self._decode(name, entry))
+        parts = []
         for extents in entry.slices:
-            key = slice_key(name, extents)
-            part_entry = self._slice_entries.get(key)
+            part_entry = self._slice_entries.get(slice_key(name, extents))
             if part_entry is None:
                 raise BundleError(f"tensor {name!r}: slice {extents} is missing")
-            part = self._decode(f"{name} slice {extents}", part_entry)
-            if out is None:
-                out = np.zeros(entry.shape, part.dtype)
-            index = tuple(slice(None) if n < 0 else slice(s, s + n) for s, n in extents)
-            if out[index].shape != part.shape:
-                raise BundleError(f"tensor {name!r}: slice {extents} holds {part.shape}")
-            out[index] = part
-            covered += part.size
-        if covered != out.size:
-            raise BundleError(f"tensor {name!r}: its slices cover {covered} of {out.size} values")
-        return out
+            parts.append((extents, self._decode(f"{name} slice {extents}", part_entry)))
+        return _as_tensorflow_returns(_assemble(name, entry.shape, parts))
 
     def close(self) -> None:
         self._shards.clear()
 
     def __enter__(self) -> "Bundle":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+# the TensorProto field of each dtype's values in a V1 SavedSlice
+# (core/util/saved_tensor_slice_util.h: SaveTypeTraits), for the dtypes
+# TensorFlow's V1 reader returns (TensorSliceReader::GetTensor; it answers
+# "Data type not supported" for float16, uint16 and the complex types, and
+# its writer saves no bfloat16, uint32 or uint64)
+_PROTO_VALUES = {"float32": (5, "<f4"), "float64": (6, "<f8"), "int32": (7, "int"),
+                 "uint8": (7, "int"), "int16": (7, "int"), "int8": (7, "int"),
+                 "string": (8, "bytes"), "int64": (10, "int"), "bool": (11, "int")}
+
+
+def _proto_values(buf: bytes, dtype: int, count: int, what: str) -> np.ndarray:
+    """The ``count`` values of a ``TensorProto`` (``SavedSlice.data``) as
+    the stored dtype: its typed repeated field, packed or not."""
+    number, form = _PROTO_VALUES[dtype_name(dtype)]
+    chunks, values = [], []
+    for field, wire, value in _fields(buf):
+        if field != number:
+            continue
+        if form == "bytes":
+            values.append(value)
+        elif form != "int":  # fixed32 / fixed64: packed, or one element
+            chunks.append(np.frombuffer(value, form) if wire == 2 else
+                          np.array([value], f"<u{4 if wire == 5 else 8}").view(form))
+        else:
+            values += _packed(value) if wire == 2 else [value]
+    if form not in ("bytes", "int"):
+        arr = np.concatenate(chunks) if chunks else np.zeros(0, form)
+    elif form == "int":
+        arr = np.array([_signed(v) for v in values], np.int64).astype(DTYPES[dtype][1])
+    else:
+        arr = np.empty(len(values), object)
+        arr[:] = values
+    if arr.size != count:
+        raise BundleError(f"{what}: {arr.size} values for {count}")
+    return arr
+
+
+class TableCheckpoint:
+    """An open V1 checkpoint (``SaverDef.V1``): one LevelDB-format table
+    file per shard (``core/util/tensor_slice_writer.cc``), the files a
+    pattern matches read together as ``TensorSliceReader`` reads them. The
+    entry under the empty key is a ``SavedTensorSlices`` whose ``meta``
+    lists each tensor's name, shape, dtype and saved slices; each slice is
+    a ``SavedTensorSlices`` under ``EncodeTensorNameSlice(name, slice)``
+    whose ``data`` holds its values in the ``TensorProto`` field of the
+    dtype. ``variables`` and ``read`` are ``Bundle``'s; the order is the
+    files' and, within a file, the meta's."""
+
+    def __init__(self, pattern: str):
+        self.prefix = resolve_prefix(pattern)
+        files = _v1_files(self.prefix)
+        if not files:
+            raise FileNotFoundError(f"{self.prefix}: no V1 table file matches it")
+        self.num_shards = len(files)
+        self._tensors: Dict[str, Tuple[int, Tuple[int, ...]]] = {}
+        self._slices: Dict[str, List[Tuple[List[Tuple[int, int]], bytes]]] = {}
+        for path in files:
+            with open(path, "rb") as f:
+                table = f.read()
+            entries = dict(_table_entries(table, path))
+            if b"" not in entries:
+                raise BundleError(f"{path}: no SavedTensorSlices meta entry")
+            for field, wire, meta in _fields(entries[b""]):
+                if field != 1 or wire != 2:
+                    raise BundleError(f"{path}: its empty key holds no SavedTensorSlices meta "
+                                      "(not a V1 checkpoint)")
+                for f, _, tensor in _fields(meta):
+                    if f == 1:
+                        self._add(tensor, entries, path)
+        self.variables = {name: (dtype_name(dt), shape)
+                          for name, (dt, shape) in self._tensors.items()}
+
+    def _add(self, tensor: bytes, entries: Dict[bytes, bytes], path: str) -> None:
+        name, shape, dtype, extents = "", (), 1, []
+        for field, _, value in _fields(tensor):
+            if field == 1:
+                name = value.decode()
+            elif field == 2:
+                shape = _shape(value)
+            elif field == 3:
+                dtype = value
+            elif field == 4:
+                extents.append(_slice(value))
+        first = self._tensors.setdefault(name, (dtype, shape))
+        if first != (dtype, shape):
+            raise BundleError(f"{path}: tensor {name!r} is {dtype_name(dtype)} {shape} here "
+                              f"and {dtype_name(first[0])} {first[1]} in another file")
+        for ext in extents:
+            saved = entries.get(slice_key(name, ext))
+            if saved is None:
+                raise BundleError(f"{path}: tensor {name!r}: slice {ext} is missing")
+            self._slices.setdefault(name, []).append((ext, saved))
+
+    def read(self, name: str) -> np.ndarray:
+        """The tensor as ``TensorSliceReader::GetTensor`` returns it, which
+        refuses a dtype it does not read and a tensor saved as several
+        slices (a partitioned variable): so does this."""
+        if name not in self._tensors:
+            raise KeyError(f"{name!r} is not in the checkpoint {self.prefix}")
+        dtype, shape = self._tensors[name]
+        if dtype_name(dtype) not in _PROTO_VALUES:
+            raise BundleError(f"tensor {name!r} has dtype {dtype_name(dtype)}, which "
+                              "TensorFlow's V1 reader does not read either (Data type not "
+                              "supported)")
+        slices = self._slices.get(name, [])
+        if len(slices) != 1:
+            raise BundleError(f"tensor {name!r} is saved as {len(slices)} slices; TensorFlow's "
+                              "V1 reader does not read it either (Sliced checkpoints are not "
+                              "supported)")
+        extents, saved = slices[0]
+        dims = tuple(n if n >= 0 else shape[i] for i, (_, n) in enumerate(extents))
+        if dims != shape:
+            raise BundleError(f"tensor {name!r}: its one slice {extents} is not all of {shape}")
+        data = b""
+        for field, _, value in _fields(saved):
+            if field == 2:  # SavedSlice: name 1, slice 2, data 3
+                data = next((v for f, _, v in _fields(value) if f == 3), b"")
+        count = int(np.prod(shape, dtype=np.int64))
+        values = _proto_values(data, dtype, count, f"tensor {name!r}")
+        return _as_tensorflow_returns(_native(values.reshape(shape), dtype))
+
+    def close(self) -> None:
+        self._slices.clear()
+
+    def __enter__(self) -> "TableCheckpoint":
         return self
 
     def __exit__(self, *exc) -> None:
@@ -543,8 +746,12 @@ def _packed(buf: bytes) -> List[int]:
     return out
 
 
-def open_bundle(prefix: str) -> Bundle:
-    return Bundle(prefix)
+def open_bundle(path: str):
+    """A ``Bundle`` (V2) or a ``TableCheckpoint`` (V1), whichever ``path``
+    names: V2 where ``<prefix>.index`` exists, as TensorFlow's
+    ``CheckpointReader`` tells them."""
+    prefix = resolve_prefix(path)
+    return Bundle(prefix) if os.path.exists(prefix + ".index") else TableCheckpoint(prefix)
 
 
 def read_tf_checkpoint(path: str) -> Dict[str, np.ndarray]:
@@ -558,5 +765,5 @@ def read_tf_checkpoint(path: str) -> Dict[str, np.ndarray]:
     return out
 
 
-__all__ = ["Bundle", "BundleError", "DROP", "crc32c", "mask_crc", "open_bundle",
-           "read_tf_checkpoint", "resolve_prefix", "slice_key", "unmask_crc"]
+__all__ = ["Bundle", "BundleError", "DROP", "TableCheckpoint", "crc32c", "mask_crc",
+           "open_bundle", "read_tf_checkpoint", "resolve_prefix", "slice_key", "unmask_crc"]

@@ -15,8 +15,8 @@ the CPU: bit-equal, with no tolerance.
 - Refused, each with its path in the ``ValueError``: arithmetic coding,
   12-bit, lossless and hierarchical frames, a DNL height, a truncated JPEG, a
   progressive JPEG cut before its last refinements (libjpeg would smooth
-  it), WebP, compressed BMP, a PNG with a broken CRC or short data, an
-  unknown format.
+  it), a truncated WebP (WebP itself: ``test_torch_webp.py``), compressed
+  BMP, a PNG with a broken CRC or short data, an unknown format.
 - ``resize_bilinear``: bit-equal to Pillow's ``BILINEAR`` over drawn sizes,
   down, up and unchanged on each axis; ``to_float_div`` equal to the
   reference's float32 expression for every byte, and different from
@@ -295,7 +295,9 @@ def test_truncated_and_unrefined_jpegs_raise_with_their_path(tmp_path):
 
 
 def test_other_formats_raise_with_their_path(tmp_path):
-    cases = {"a.webp": b"RIFF\x10\0\0\0WEBPVP8 " + bytes(8),
+    webp = io.BytesIO()
+    Image.fromarray(_scene(8, 8)).save(webp, "WEBP", quality=80)
+    cases = {"a.webp": webp.getvalue()[:-7],  # a WebP cut short
              "b.gif": b"GIF89a" + bytes(20),
              "c.png": b"\x89PNG\r\n\x1a\n" + bytes(20)}
     bmp = io.BytesIO()
@@ -313,8 +315,8 @@ def test_other_formats_raise_with_their_path(tmp_path):
         with pytest.raises(ValueError) as e:
             codec.decode_rgb(str(tmp_path / name))
         assert str(tmp_path / name) in str(e.value)
-    assert "WebP" in str(pytest.raises(ValueError, codec.decode_rgb,
-                                       str(tmp_path / "a.webp")).value)
+    assert "truncated WebP" in str(pytest.raises(ValueError, codec.decode_rgb,
+                                                 str(tmp_path / "a.webp")).value)
 
 
 # ---------------------------------------------------------------- PNG

@@ -5,8 +5,9 @@ loaded from its file), on the CPU: the same random ``.npz`` files at
 the files), and one file of CHW rows as the downsampled-ImageNet files hold
 them, give byte-equal stores and pyramid members and equal metadata; a
 folder of class subdirectories and ``--paired`` are packed (byte-equal
-there: ``test_torch_image_folders.py``), and a WebP file stops the tool
-with a ``ValueError`` naming it."""
+there: ``test_torch_image_folders.py``); a folder holding WebP files is
+packed byte-equal to the reference tool's store, and a truncated WebP
+stops the tool with a ``ValueError`` naming it."""
 
 import importlib.util
 import json
@@ -66,9 +67,11 @@ def test_stores_are_byte_equal_to_the_references(ref, tmp_path, resolutions, chw
         assert got[2].min() == 0  # shifted from 1-indexed
 
 
-def test_folders_and_paired_exit_2_naming_pillow(tmp_path):
+def test_folders_and_paired_exit_2_naming_pillow(ref, tmp_path):
     """(Its name is from when folders and --paired exited 2.) A class folder
-    and --paired are packed; a WebP file is refused by name."""
+    and --paired are packed; a folder with WebP files (lossy, lossless with
+    alpha) packs to the reference tool's store bytes; a truncated WebP is
+    refused by name."""
     from PIL import Image
     (tmp_path / "imgs" / "cls").mkdir(parents=True)
     Image.fromarray(np.full((40, 64, 3), 90, np.uint8)).save(tmp_path / "imgs" / "cls" / "a.jpg")
@@ -79,7 +82,20 @@ def test_folders_and_paired_exit_2_naming_pillow(tmp_path):
                "--size", "32", "--paired"])
     with open(tmp_path / "pairs" / "meta.json") as f:
         assert json.load(f)["paired"] is True
-    webp = tmp_path / "imgs" / "cls" / "b.webp"
-    webp.write_bytes(b"RIFF\x10\0\0\0WEBPVP8 " + bytes(8))
-    with pytest.raises(ValueError, match="b.webp: WebP"):
+    rng = np.random.default_rng(1)
+    (tmp_path / "imgs" / "other").mkdir()
+    Image.fromarray(rng.integers(0, 256, (45, 67, 3), np.uint8)).save(
+        tmp_path / "imgs" / "cls" / "b.webp", quality=70)
+    Image.fromarray(rng.integers(0, 256, (50, 37, 4), np.uint8), "RGBA").save(
+        tmp_path / "imgs" / "other" / "c.WEBP", lossless=True)
+    args = ["--src", str(tmp_path / "imgs"), "--size", "32"]
+    port.main(args + ["--out", str(tmp_path / "w_port")])
+    ref.main(args + ["--out", str(tmp_path / "w_ref")])
+    got, want = _store(tmp_path / "w_port"), _store(tmp_path / "w_ref")
+    assert got[0] == want[0] and got[0]["n"] == 3
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])
+    webp = tmp_path / "imgs" / "cls" / "d.webp"
+    webp.write_bytes((tmp_path / "imgs" / "cls" / "b.webp").read_bytes()[:-9])
+    with pytest.raises(ValueError, match="d.webp: truncated WebP"):
         port.main(["--src", str(tmp_path / "imgs"), "--out", str(tmp_path / "w"), "--size", "32"])

@@ -3,12 +3,14 @@ tf1_bundle.py``) against TensorFlow's own reader.
 
 Every tensor is held bit-equal (no tolerance) to
 ``np.asarray(tf.train.load_checkpoint(prefix).get_tensor(name))``,
-bfloat16 widened to float32 on both sides, on the TensorFlow-written
-fixtures under ``tests/torch_fixtures/tf1/`` (every dtype the reader
-decodes, scalars, ``fixed_size_partitioner`` variables, a two-shard
-``Saver(sharded=True)`` bundle, a TF2 ``tf.train.Checkpoint``) and on
-the bundles of the test scaffolding writer (``bundle_writer.py``: many
-blocks, prefix-compressed keys, slices and shards). Corrupt and
+bfloat16 widened to float32 on both sides, strings element for element,
+on the TensorFlow-written fixtures under ``tests/torch_fixtures/tf1/``
+(every dtype, scalars, ``fixed_size_partitioner`` variables, a two-shard
+``Saver(sharded=True)`` bundle, a TF2 ``tf.train.Checkpoint``, and the V1
+format: one file, two shards through their pattern, and the tensors
+TensorFlow's V1 reader refuses, which the reader refuses too) and on the
+checkpoints of the test scaffolding writer (``bundle_writer.py``: many
+blocks, prefix-compressed keys, slices and shards, V1 files). Corrupt and
 unsupported inputs are refused by name. The CRC32C is held to the plain
 byte loop at sizes either side of its lanes.
 """
@@ -47,7 +49,11 @@ def _tf_value(reader, name: str) -> np.ndarray:
 
 def _assert_bit_equal(got: np.ndarray, want: np.ndarray, name: str) -> None:
     assert got.dtype == want.dtype and got.shape == want.shape, (name, got.dtype, want.dtype)
-    assert np.ascontiguousarray(got).tobytes() == np.ascontiguousarray(want).tobytes(), name
+    if got.dtype == object:
+        assert all(type(g) is bytes for g in got.ravel()), name
+        assert got.ravel().tolist() == want.ravel().tolist(), name
+    else:
+        assert np.ascontiguousarray(got).tobytes() == np.ascontiguousarray(want).tobytes(), name
 
 
 def _copy(key: str, dest) -> str:
@@ -61,16 +67,24 @@ def test_reader_equals_tensorflow(key):
     reader = tf.train.load_checkpoint(_prefix(key))
     shapes, dtypes = reader.get_variable_to_shape_map(), reader.get_variable_to_dtype_map()
     with tf1_bundle.open_bundle(_prefix(key)) as bundle:
+        assert type(bundle).__name__ == ("Bundle" if MANIFEST["bundles"][key]["format"] == "V2"
+                                         else "TableCheckpoint")
         assert set(bundle.variables) == set(shapes)
-        assert list(bundle.variables) == sorted(bundle.variables)  # the bundle's key order
+        if isinstance(bundle, tf1_bundle.Bundle):
+            assert list(bundle.variables) == sorted(bundle.variables)  # the bundle's key order
         for name, (dtype, shape) in bundle.variables.items():
             assert dtype == dtypes[name].name and list(shape) == list(shapes[name]), name
-            if dtype != "string":
-                _assert_bit_equal(bundle.read(name), _tf_value(reader, name), name)
+            try:
+                want = _tf_value(reader, name)
+            except tf.errors.UnimplementedError as e:  # TensorFlow's V1 reader refuses it
+                with pytest.raises(tf1_bundle.BundleError, match=f"'{name}'.*{e.message}"):
+                    bundle.read(name)
+                continue
+            _assert_bit_equal(bundle.read(name), want, name)
 
 
 def test_committed_fixtures_equal_their_manifest():
-    n = 0
+    n = refused = 0
     for key, entry in MANIFEST["bundles"].items():
         with tf1_bundle.open_bundle(_prefix(key)) as bundle:
             assert set(bundle.variables) == set(entry["tensors"]), key
@@ -78,10 +92,13 @@ def test_committed_fixtures_equal_their_manifest():
                 dtype, shape = bundle.variables[name]
                 assert (dtype, list(shape)) == (want["dtype"], want["shape"]), name
                 if "sha256" in want:
-                    got = hashlib.sha256(bundle.read(name).tobytes()).hexdigest()
-                    assert got == want["sha256"], name
+                    assert bundle_writer.digest(bundle.read(name)) == want["sha256"], name
                     n += 1
-    assert n == 23
+                else:
+                    with pytest.raises(tf1_bundle.BundleError, match=want["refused"]):
+                        bundle.read(name)
+                    refused += 1
+    assert (n, refused) == (58, 4)
 
 
 def test_every_dtype_and_the_partitioned_variables():
@@ -161,15 +178,21 @@ def test_refusals(fault, tmp_path):
         with pytest.raises(tf1_bundle.BundleError, match="BIG-endian"):
             tf1_bundle.open_bundle(prefix)
         return
-    if fault == "v1":
-        with pytest.raises(tf1_bundle.BundleError, match="V1 checkpoint"):
-            tf1_bundle.read_tf_checkpoint(os.path.join(FIXTURES, "v1", "model.ckpt"))
-        with pytest.raises(tf1_bundle.BundleError, match="V1 checkpoint"):
-            tf1_bundle.read_tf_checkpoint(os.path.join(FIXTURES, "v1"))
+    if fault == "v1":  # read since V1 tables are: a pattern or a directory, as TensorFlow
+        reader = tf.train.load_checkpoint(os.path.join(FIXTURES, "v1"))
+        for path in (os.path.join(FIXTURES, "v1", "model.ckpt"), os.path.join(FIXTURES, "v1")):
+            got = tf1_bundle.read_tf_checkpoint(path)
+            assert sorted(got) == ["gen/note", "gen/w"]
+            for name in got:
+                _assert_bit_equal(got[name], _tf_value(reader, name), name)
+        assert got["gen/note"].dtype == np.dtype("S17") and got["gen/note"][()] == \
+            b"a string variable"
         return
-    if fault == "string":
-        with pytest.raises(tf1_bundle.BundleError, match="'gen/note' has dtype string"):
-            tf1_bundle.read_tf_checkpoint(_prefix("string"))
+    if fault == "string":  # decoded as TensorFlow returns it: a string scalar is bytes
+        got = tf1_bundle.read_tf_checkpoint(_prefix("string"))
+        want = np.asarray(tf.train.load_checkpoint(_prefix("string")).get_tensor("gen/note"))
+        _assert_bit_equal(got["gen/note"], want, "gen/note")
+        assert got["gen/note"][()] == b"a string variable"
         return
     prefix = _copy("dtypes", tmp_path)
     index = prefix + ".index"
@@ -219,6 +242,11 @@ def test_writer_bundles_read_back_through_tensorflow(tmp_path):
         "gen/bf": bundle_writer.Bfloat16(rng.standard_normal((3, 2))),
         "gen/part": rng.standard_normal((9, 4)).astype(np.float32),
         "dis/big": rng.standard_normal((64, 64)).astype(np.float32),
+        "dis/u8": np.array([0, 255], np.uint8), "dis/i16": np.array([-32768, 7], np.int16),
+        "dis/i8": np.int8(-5), "dis/u16": np.array([65535], np.uint16),
+        "dis/u32": np.array([1, 4294967295], np.uint32), "dis/u64": np.uint64(2 ** 64 - 1),
+        "gen/c64": np.array([1 - 2j], np.complex64), "gen/c128": np.complex128(3 + 4j),
+        "gen/note": np.array(b"kept"), "gen/words": np.array([[b"a", b""], [b"\xff", b"bc"]], object),
     }
     for i in range(40):  # enough keys for several blocks and restart points
         tensors[f"gen/block{i}/conv/b"] = rng.standard_normal(3).astype(np.float32)
@@ -234,6 +262,51 @@ def test_writer_bundles_read_back_through_tensorflow(tmp_path):
             _assert_bit_equal(bundle.read(name), want, name)
 
 
+@pytest.mark.parametrize("num_shards", [1, 3])
+def test_v1_writer_reads_back_through_tensorflow(num_shards, tmp_path):
+    rng = np.random.default_rng(6)
+    tensors = {
+        "gen/W": rng.standard_normal((5, 7)).astype(np.float32), "gen/scalar": np.float32(1.5),
+        "dis/f64": rng.standard_normal(4), "dis/i32": np.array([-5, 0, 2 ** 31 - 1], np.int32),
+        "dis/i64": np.int64(-3), "dis/u8": np.array([0, 255], np.uint8),
+        "dis/i16": np.array([-32768, 1], np.int16), "dis/i8": np.array([-128, 127], np.int8),
+        "dis/mask": np.array([True, False]), "gen/note": np.array(b"xy"),
+        "gen/words": np.array([b"a", b"", b"\x00\xff"], object),
+        "gen/empty": np.zeros((0, 3), np.float32),
+    }
+    for i in range(30):  # several blocks
+        tensors[f"gen/block{i}/b"] = rng.standard_normal(3).astype(np.float32)
+    path = bundle_writer.write_v1(str(tmp_path / "model.ckpt"), tensors, num_shards=num_shards,
+                                  block_size=256)
+    reader = tf.train.load_checkpoint(path)
+    with tf1_bundle.open_bundle(path) as ckpt:
+        assert isinstance(ckpt, tf1_bundle.TableCheckpoint) and ckpt.num_shards == num_shards
+        assert set(ckpt.variables) == set(reader.get_variable_to_shape_map()) == set(tensors)
+        for name, value in tensors.items():
+            want = _tf_value(reader, name)
+            _assert_bit_equal(ckpt.read(name), want, name)
+            assert bundle_writer.digest(want) == bundle_writer.digest(np.asarray(value)), name
+
+
+@pytest.mark.parametrize("where", ["length", "string byte"])
+def test_corrupt_string_tensor_refused(where, tmp_path):
+    prefix = _copy("mixed", tmp_path)
+    with tf1_bundle.open_bundle(prefix) as bundle:
+        entry = bundle._entries["gen/words"]
+    # the lengths are 3 varints (2, 0, 3), then their masked CRC, then "ab" "" "x\0\xff"
+    _flip(prefix + ".data-00000-of-00001", entry.offset + (0 if where == "length" else 8))
+    want = "string lengths CRC32C" if where == "length" else "data CRC32C mismatch"
+    with pytest.raises(tf1_bundle.BundleError, match=f"'gen/words'.*({want}|bytes for 3)"):
+        tf1_bundle.open_bundle(prefix).read("gen/words")
+    with pytest.raises(Exception):  # TensorFlow refuses it too
+        tf.train.load_checkpoint(prefix).get_tensor("gen/words")
+
+
+def test_no_checkpoint_at_the_path(tmp_path):
+    with pytest.raises(FileNotFoundError, match="no V1 table file matches"):
+        tf1_bundle.read_tf_checkpoint(str(tmp_path / "model.ckpt-?????-of-00002"))
+
+
 @pytest.mark.parametrize("n", [0, 1, 9, 4095, 4096, 4099, 70_001, 1 << 20])
 def test_crc32c_equals_the_byte_loop(n):
     data = np.random.default_rng(n).integers(0, 256, n, dtype=np.uint8)
@@ -243,16 +316,18 @@ def test_crc32c_equals_the_byte_loop(n):
     assert tf1_bundle.unmask_crc(tf1_bundle.mask_crc(want)) == want
 
 
-BLOCKED = ("tensorflow", "google", "jax", "jaxlib", "flax", "optax", "orbax",
+BLOCKED = ("tensorflow", "google", "jax", "jaxlib", "flax", "optax", "orbax", "PIL",
            "gan_lib_tensorflow_tpu")
 FRESH = ("gan_lib_tensorflow_tpu_torch", "bundle_writer")
 
 
 def test_reader_and_tool_import_without_tensorflow_protobuf_or_jax(tmp_path):
-    """The reader, the import tool and the bundle writer, imported afresh
-    with TensorFlow, protobuf, JAX and the JAX package blocked: each of
-    their modules, loaded or not, reads ``None`` in ``sys.modules``, so any
-    import of one raises. The port's modules are put back as they were."""
+    """The reader, the import tool, the bundle writer and the image decoder,
+    imported afresh with TensorFlow, protobuf, JAX, Pillow and the JAX
+    package blocked: each of their modules, loaded or not, reads ``None`` in
+    ``sys.modules``, so any import of one raises. A V1 checkpoint is read
+    and WebP fixtures decode to their manifest's hashes. The port's modules
+    are put back as they were."""
     before = dict(sys.modules)
     try:
         for name in before:
@@ -275,6 +350,15 @@ def test_reader_and_tool_import_without_tensorflow_protobuf_or_jax(tmp_path):
         assert tool.main(["--ckpt", prefix, "--model", "pggan", "--resolution", "8",
                           "--width-mul", "0.015625", "--out-dir", str(tmp_path),
                           "--report-only", "--device", "cpu"]) == 0
+        v1 = reader.read_tf_checkpoint(_prefix("v1_dtypes"))
+        assert writer.digest(v1["gen/words"]) == \
+            MANIFEST["bundles"]["v1_dtypes"]["tensors"]["gen/words"]["sha256"]
+        codec = importlib.import_module("gan_lib_tensorflow_tpu_torch.data.codec")
+        webp = os.path.join(REPO, "tests", "torch_fixtures", "webp")
+        files = json.load(open(os.path.join(webp, "manifest.json")))["files"]
+        for name in ("lossy_alpha_q50.webp", "lossless_256.webp", "animation_offset_frame.webp"):
+            rgb = codec.decode_rgb(os.path.join(webp, name))
+            assert hashlib.sha256(rgb.tobytes()).hexdigest() == files[name]["rgb_sha256"], name
         assert all(sys.modules[name] is None for name in BLOCKED)
     finally:
         for name in list(sys.modules):

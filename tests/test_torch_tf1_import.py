@@ -31,6 +31,13 @@ disk through orbax and is read back with ``restore_latest_raw`` (orbax's
 save and restore keep every float32 bit).
 The reference's pix2pix import raises ``TypeError`` (its D init omits
 the target image); it runs here with that one call given both images.
+
+Kept variables of other dtypes go through both tools alike: a SNGAN
+checkpoint keeps a string, an int16, a uint8 and a complex64 variable
+(the last three matched by role and shape ahead of real weights, so both
+tools cast them to float32), a V1 checkpoint of PGGAN imports equal, and a
+string matched by shape fails both tools' cast with numpy's ``ValueError``
+after the same report.
 """
 
 import dataclasses
@@ -434,3 +441,98 @@ def test_pggan_ladder_trains_beside_the_import_as_the_reference_does(imported, t
     assert "resumed" not in capsys.readouterr().out
     assert os.listdir(os.path.join(out, "ckpt")) == ["step_000000.pt"]
     assert {"4x4_stabilize", "8x8_transition", "8x8_stabilize"} <= set(os.listdir(out))
+
+
+def _tflib_named(family, prefix_g, prefix_d):
+    g, d = _built(family)
+    return (bundle_writer.tflib_variables(g, prefix_g, 100)
+            + bundle_writer.tflib_variables(d, prefix_d, 101))
+
+
+def _both_tools(prefix, model, flags, root):
+    """The reference tool (traced init, state kept in memory) and the
+    port's on one checkpoint: (reference out dir, port out dir)."""
+    with pytest.MonkeyPatch.context() as mp:
+        _patch_reference(mp)
+        assert ref.main(["--ckpt", prefix, "--model", model, "--out-dir", str(root / "ref")]
+                        + flags) == 0
+    assert _port_main(["--ckpt", prefix, "--model", model, "--out-dir", str(root / "port")]
+                      + flags) == 0
+    return str(root / "ref"), str(root / "port")
+
+
+def test_kept_variables_of_every_dtype_import_as_the_reference_imports(tmp_path):
+    """SNGAN CIFAR-10 (full width, 32 variables) named ``gen/w.NN.W`` /
+    ``dis/w.NN.W`` plus ``gen/note`` (string), ``gen/mask`` (uint8, the
+    shape of G's last conv kernel), ``dis/counts`` (int16, D's dense
+    kernel) and ``dis/phase`` (complex64, D's first conv kernel): the three
+    numbers sort first in their (role, shape) groups, so both tools match
+    them and cast them to float32 (the complex one loses its imaginary
+    part), and list the weights they displace and the string unmatched."""
+    named = _tflib_named("sngan", "gen/w", "dis/w")
+    shapes = {path: val.shape for _, path, val in named}
+    rng = np.random.default_rng(7)
+    g_last = max((p for p in shapes if p.startswith("params/conv")), key=port._natkey)
+    extra = [("gen/note", None, np.array(b"trained 100k steps")),
+             ("gen/mask", None, rng.integers(0, 256, shapes[g_last]).astype(np.uint8))]
+    d_named = [(n, p, v) for n, p, v in named if n.startswith("dis/")]
+    d_dense = next(v.shape for n, p, v in d_named if v.ndim == 2 and n.endswith(".W"))
+    d_first = next(v.shape for n, p, v in d_named if v.ndim == 4)
+    extra += [("dis/counts", None, rng.integers(-32768, 32768, d_dense).astype(np.int16)),
+              ("dis/phase", None, (rng.standard_normal(d_first)
+                                   + 1j * rng.standard_normal(d_first)).astype(np.complex64))]
+    prefix = _write_tf1(tmp_path, named, extra)
+    got = port.read_tf_checkpoint(prefix)
+    assert [got[n].dtype.name for n in ("gen/note", "gen/mask", "dis/counts", "dis/phase")] == \
+        ["bytes144", "uint8", "int16", "complex64"]
+    with pytest.warns(np.exceptions.ComplexWarning):
+        ref_out, port_out = _both_tools(prefix, "sngan", [], tmp_path)
+    report = open(os.path.join(ref_out, "import_report.json"), "rb").read()
+    assert open(os.path.join(port_out, "import_report.json"), "rb").read() == report
+    parsed = json.loads(report)
+    matched = {m["tf"] for net in ("generator", "discriminator") for m in parsed[net]["matched"]}
+    assert {"gen/mask", "dis/counts", "dis/phase"} <= matched
+    assert "gen/note" in parsed["generator"]["unmatched_tf"]
+    assert len(parsed["discriminator"]["unmatched_tf"]) == 2
+    want = _ref_tensors(_ref_raw(os.path.join(ref_out, "ckpt")))
+    assert _assert_same(_port_tensors(os.path.join(port_out, "ckpt"), "sngan"), want) > len(named)
+
+
+def test_v1_checkpoint_imports_as_the_reference_imports(tmp_path):
+    """A ``SaverDef.V1`` checkpoint (one table file) of PGGAN at small
+    width, written by TensorFlow: the same report and step-0 tensors."""
+    named = _tflib_named("pggan", "Generator", "Discriminator")
+    variables = {name: tf.Variable(np.asarray(val)) for name, _, val in named}
+    variables["global_step"] = tf.Variable(np.int64(7))
+    prefix = tf.compat.v1.train.Saver(
+        var_list=variables, write_version=tf.compat.v1.train.SaverDef.V1).save(
+        None, str(tmp_path / "model.ckpt"), write_meta_graph=False)
+    assert not os.path.exists(prefix + ".index") and os.path.isfile(prefix)
+    ref_out, port_out = _both_tools(prefix, "pggan", FAMILIES["pggan"][1], tmp_path)
+    report = open(os.path.join(ref_out, "import_report.json"), "rb").read()
+    assert open(os.path.join(port_out, "import_report.json"), "rb").read() == report
+    assert not json.loads(report)["generator"]["unmatched_target"]
+    want = _ref_tensors(_ref_raw(os.path.join(ref_out, "ckpt")))
+    assert _assert_same(_port_tensors(os.path.join(port_out, "ckpt"), "pggan"), want) > len(named)
+
+
+def test_a_string_matched_by_shape_fails_both_casts(tmp_path):
+    """A string vector sorted first among PGGAN's G kernels of its shape:
+    both tools write the same report and then fail to cast it to float32
+    (numpy's ``ValueError``), writing no checkpoint."""
+    named = _tflib_named("pggan", "gen/w", "dis/w")
+    shape = next(v.shape for n, p, v in named if n.startswith("gen/") and v.ndim == 2)
+    words = np.array([b"not a number"] * int(np.prod(shape)), object).reshape(shape)
+    prefix = _write_tf1(tmp_path / "ckpt", named, [("gen/a_note", None, words)])
+    argv = ["--ckpt", prefix, "--model", "pggan"] + FAMILIES["pggan"][1]
+    with pytest.MonkeyPatch.context() as mp:
+        _patch_reference(mp)
+        with pytest.raises(ValueError, match="could not convert string to float"):
+            ref.main(argv + ["--out-dir", str(tmp_path / "ref")])
+    with pytest.raises(ValueError, match="could not convert string to float"):
+        _port_main(argv + ["--out-dir", str(tmp_path / "port")])
+    report = (tmp_path / "ref" / "import_report.json").read_bytes()
+    assert (tmp_path / "port" / "import_report.json").read_bytes() == report
+    assert any(m["tf"] == "gen/a_note" for m in json.loads(report)["generator"]["matched"])
+    assert not os.path.exists(tmp_path / "ref" / "ckpt") and not os.path.exists(
+        tmp_path / "port" / "ckpt")

@@ -13,10 +13,19 @@ block, an empty metaindex block, the footer) and the data files. Options:
 ``tests/test_torch_tf1_bundle.py`` holds every kind against
 ``tf.train.load_checkpoint``. ``tflib_variables`` names a port network's
 leaves as a tflib-lineage checkpoint names them.
+
+``write_v1(prefix, tensors, num_shards)`` writes the V1 format
+(``SaverDef.V1``): one table file per shard (``<prefix>`` alone, or
+``<prefix>-NNNNN-of-NNNNN``), whose empty key holds the
+``SavedTensorSlices`` meta and each tensor's one full slice its values in
+the ``TensorProto`` field of its dtype. It returns the path
+``tf.train.load_checkpoint`` takes (the ``-?????-of-NNNNN`` pattern for
+shards). ``digest`` is the manifest's hash of a tensor.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 from typing import Dict, List, Optional, Tuple
 
@@ -28,8 +37,14 @@ from gan_lib_tensorflow_tpu_torch.tools.tf1_bundle import (TABLE_MAGIC, crc32c, 
                                                            slice_key)
 
 RESTART_INTERVAL = 16
-_DTYPE_NUMBERS = {np.dtype(np.float32): 1, np.dtype(np.float64): 2, np.dtype(np.int32): 3,
-                  np.dtype(np.int64): 9, np.dtype(np.bool_): 10, np.dtype(np.float16): 19}
+DT_STRING = 7
+# DataType enum numbers of the numeric dtypes a bundle stores (V1 files
+# keep to _V1_FIELDS')
+_NUMBERS = {np.dtype(np.float32): 1, np.dtype(np.float64): 2, np.dtype(np.int32): 3,
+            np.dtype(np.uint8): 4, np.dtype(np.int16): 5, np.dtype(np.int8): 6,
+            np.dtype(np.complex64): 8, np.dtype(np.int64): 9, np.dtype(np.bool_): 10,
+            np.dtype(np.uint16): 17, np.dtype(np.complex128): 18, np.dtype(np.float16): 19,
+            np.dtype(np.uint32): 22, np.dtype(np.uint64): 23}
 DT_BFLOAT16 = 14
 # tflib's variable suffix of each role of the importer
 TFLIB_SUFFIX = {"kernel": "W", "bias": "b", "scale": "gamma", "bn_bias": "beta",
@@ -49,6 +64,18 @@ def tflib_variables(net, prefix: str, seed: int) -> List[Tuple[str, str, np.ndar
         out.append((f"{prefix}.{i:02d}.{TFLIB_SUFFIX[role]}", path,
                     np.abs(val) + np.float32(0.5) if role == "var" else val))
     return out
+
+
+def digest(value: np.ndarray) -> str:
+    """The manifest's sha256 of a tensor as ``tf.train.load_checkpoint``
+    returns it: its bytes (bfloat16 widened to float32), or for strings
+    each element's length as 8 little-endian bytes and then its bytes."""
+    if value.dtype == object or value.dtype.kind == "S":
+        raw = b"".join(len(b).to_bytes(8, "little") + b for b in value.ravel().tolist())
+    else:
+        raw = np.ascontiguousarray(value.astype(np.float32) if value.dtype.name == "bfloat16"
+                                   else value).tobytes()
+    return hashlib.sha256(raw).hexdigest()
 
 
 class Bfloat16:
@@ -158,14 +185,30 @@ def _table(entries: List[Tuple[bytes, bytes]], block_size: int) -> bytes:
     return bytes(out + footer + TABLE_MAGIC.to_bytes(8, "little"))
 
 
-def _stored(value) -> Tuple[int, tuple, bytes]:
+def _strings(arr: np.ndarray) -> Tuple[bytes, int]:
+    """A string tensor's bytes in a bundle (a varint64 length per element,
+    the masked CRC32C of the lengths, the strings) and its entry's CRC32C:
+    both CRCs take each length as a little-endian uint32, the entry's then
+    the masked length CRC and the strings."""
+    items = [bytes(b) for b in arr.ravel().tolist()]
+    lengths = b"".join(len(b).to_bytes(4, "little") for b in items)
+    tail = mask_crc(crc32c(lengths)).to_bytes(4, "little") + b"".join(items)
+    return b"".join(_varint(len(b)) for b in items) + tail, crc32c(lengths + tail)
+
+
+def _stored(value) -> Tuple[int, tuple, bytes, Optional[int]]:
+    """(DataType, shape, stored bytes, entry CRC32C where it is not the
+    bytes' own)."""
     if isinstance(value, Bfloat16):
-        return DT_BFLOAT16, value.shape, value.bits.astype("<u2").tobytes()
+        return DT_BFLOAT16, value.shape, value.bits.astype("<u2").tobytes(), None
     arr = np.asarray(value)
-    dt = _DTYPE_NUMBERS.get(arr.dtype)
+    if arr.dtype == object or arr.dtype.kind == "S":
+        return (DT_STRING, arr.shape) + _strings(arr)
+    dt = _NUMBERS.get(arr.dtype)
     if dt is None:
         raise ValueError(f"no DataType for {arr.dtype}")
-    return dt, arr.shape, np.ascontiguousarray(arr).astype(arr.dtype.newbyteorder("<")).tobytes()
+    return (dt, arr.shape,
+            np.ascontiguousarray(arr).astype(arr.dtype.newbyteorder("<")).tobytes(), None)
 
 
 def _cuts(n: int, k: int) -> List[Tuple[int, int]]:
@@ -179,6 +222,50 @@ def _cuts(n: int, k: int) -> List[Tuple[int, int]]:
     return out
 
 
+# V1: the TensorProto field of each dtype and whether its values are
+# varints (else fixed-width little-endian)
+_V1_FIELDS = {np.dtype(np.float32): (5, "<f4"), np.dtype(np.float64): (6, "<f8"),
+              np.dtype(np.int32): (7, None), np.dtype(np.uint8): (7, None),
+              np.dtype(np.int16): (7, None), np.dtype(np.int8): (7, None),
+              np.dtype(np.int64): (10, None), np.dtype(np.bool_): (11, None)}
+
+
+def _v1_values(arr: np.ndarray) -> Tuple[int, bytes]:
+    """(DataType, the TensorProto holding ``arr``'s values)."""
+    if arr.dtype == object or arr.dtype.kind == "S":
+        return DT_STRING, b"".join(_field(8, bytes(b), 2) for b in arr.ravel().tolist())
+    number, fixed = _V1_FIELDS[arr.dtype]
+    if fixed:
+        packed = np.ascontiguousarray(arr, fixed).tobytes()
+    else:
+        packed = b"".join(_varint(int(v)) for v in arr.ravel().tolist())
+    return _NUMBERS[arr.dtype], _field(number, packed, 2) if arr.size else b""
+
+
+def write_v1(prefix: str, tensors: Dict[str, object], num_shards: int = 1,
+             block_size: int = 262144) -> str:
+    """Write ``tensors`` (``{name: array}``, each saved whole) in the V1
+    format, dealt round-robin in name order over ``num_shards`` files."""
+    os.makedirs(os.path.dirname(os.path.abspath(prefix)), exist_ok=True)
+    names = sorted(tensors)
+    for shard in range(num_shards):
+        meta, entries = b"", []
+        for name in names[shard::num_shards]:
+            arr = np.asarray(tensors[name])
+            dtype, proto = _v1_values(arr)
+            full = b"".join(_field(1, b"", 2) for _ in arr.shape)  # full extents
+            meta += _field(1, _field(1, name.encode(), 2) + _field(2, _shape_proto(arr.shape), 2)
+                           + _field(3, dtype) + _field(4, full, 2), 2)
+            saved = _field(1, name.encode(), 2) + _field(2, full, 2) + _field(3, proto, 2)
+            extents = [(0, -1)] * arr.ndim
+            entries.append((slice_key(name, extents), _field(2, saved, 2)))
+        meta += _field(2, _field(1, 1), 2)  # versions { producer: 1 }
+        path = prefix if num_shards == 1 else f"{prefix}-{shard:05d}-of-{num_shards:05d}"
+        with open(path, "wb") as f:
+            f.write(_table([(b"", _field(1, meta, 2))] + sorted(entries), block_size))
+    return prefix if num_shards == 1 else f"{prefix}-?????-of-{num_shards:05d}"
+
+
 def write_bundle(prefix: str, tensors: Dict[str, object], num_shards: int = 1,
                  partitions: Optional[Dict[str, int]] = None,
                  block_size: int = 262144) -> str:
@@ -187,9 +274,14 @@ def write_bundle(prefix: str, tensors: Dict[str, object], num_shards: int = 1,
     os.makedirs(os.path.dirname(os.path.abspath(prefix)), exist_ok=True)
     partitions = partitions or {}
     records: Dict[bytes, Tuple[int, tuple, bytes, Optional[list]]] = {}
+    crcs: Dict[bytes, int] = {}
     for name, value in tensors.items():
-        dt, shape, raw = _stored(value)
+        dt, shape, raw, crc = _stored(value)
         k = partitions.get(name, 1)
+        if crc is not None:  # a string tensor: saved whole, with its own CRC
+            records[name.encode()] = (dt, shape, raw, None)
+            crcs[name.encode()] = crc
+            continue
         if k == 1:
             records[name.encode()] = (dt, shape, raw, None)
             continue
@@ -213,8 +305,8 @@ def write_bundle(prefix: str, tensors: Dict[str, object], num_shards: int = 1,
         shard = shard_of[key]
         offset = len(data[shard])
         data[shard] += raw
-        entries.append((key, _entry(dt, shape, shard, offset, len(raw),
-                                    mask_crc(crc32c(raw)))))
+        crc = crcs[key] if key in crcs else crc32c(raw)
+        entries.append((key, _entry(dt, shape, shard, offset, len(raw), mask_crc(crc))))
     with open(prefix + ".index", "wb") as f:
         f.write(_table(entries, block_size))
     for i, blob in enumerate(data):

@@ -16,26 +16,43 @@ written):
 - ``tf2/ckpt-1``: ``tf.train.Checkpoint``, whose object graph is a string
   entry;
 - ``string/model.ckpt``: a kept ``tf.string`` variable;
-- ``v1/model.ckpt``: ``SaverDef.V1``, one table file and no ``.index``.
+- ``mixed/model.ckpt``: uint8, int8, int16, uint16, uint32, uint64,
+  complex64, complex128 and string tensors (a scalar, a vector with an
+  empty string and 0x00/0xff bytes, a matrix), a partitioned int16;
+- ``v1/model.ckpt``: ``SaverDef.V1``, one table file and no ``.index``;
+- ``v1_dtypes/model.ckpt``: V1, every dtype TensorFlow's V1 reader
+  returns (float32, float64, int32, int64, uint8, int16, int8, bool,
+  string), scalars, a random and a zero 64x64 float32 tensor (its table
+  block stays uncompressed: TensorFlow's V1 writer does not compress),
+  dropped slot names;
+- ``v1_sharded/model.ckpt-?????-of-00002``: V1 ``Saver(sharded=True)`` on
+  two CPU devices, two table files read through the pattern;
+- ``v1_refused/model.ckpt``: V1 tensors TensorFlow lists and will not read
+  (float16, uint16, complex64, a ``fixed_size_partitioner(3)`` variable).
 
-``manifest.json`` lists, for every V2 bundle, each tensor
+``manifest.json`` lists, for every checkpoint, its format and each tensor
 ``tf.train.load_checkpoint`` lists: its dtype, shape and the sha256 of
-``np.asarray(reader.get_tensor(name))``'s bytes (bfloat16 widened to
-float32 first; strings not hashed).
+``np.asarray(reader.get_tensor(name))`` (``bundle_writer.digest``:
+bfloat16 widened to float32 first; strings as each one's 8-byte length
+and bytes), or, where TensorFlow refuses to read it, its error message.
 """
 
 from __future__ import annotations
 
 import glob
-import hashlib
 import json
 import os
+import sys
 
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-V2_BUNDLES = {"dtypes": "dtypes/model.ckpt", "sharded": "sharded/model.ckpt",
-              "tf2": "tf2/ckpt-1", "string": "string/model.ckpt"}
+sys.path[:0] = [HERE, os.path.dirname(os.path.dirname(os.path.dirname(HERE)))]
+CHECKPOINTS = {"dtypes": "dtypes/model.ckpt", "sharded": "sharded/model.ckpt",
+               "tf2": "tf2/ckpt-1", "string": "string/model.ckpt", "mixed": "mixed/model.ckpt",
+               "v1": "v1/model.ckpt", "v1_dtypes": "v1_dtypes/model.ckpt",
+               "v1_sharded": "v1_sharded/model.ckpt-?????-of-00002",
+               "v1_refused": "v1_refused/model.ckpt"}
 
 
 def _saver_bundle(tf, name: str, build, sharded: bool = False, devices: int = 1,
@@ -96,6 +113,58 @@ def _string(tf1):
     tf1.get_variable("gen/note", initializer=tf.constant("a string variable"))
 
 
+def _mixed(tf1):
+    import tensorflow as tf
+    rng = np.random.default_rng(3)
+    const = lambda v, dt=None: tf.constant(v, dtype=dt)
+    tf1.get_variable("gen/mask", initializer=const(rng.integers(0, 256, (2, 3)).astype(np.uint8)))
+    tf1.get_variable("gen/i8", initializer=const(np.array([-128, -1, 0, 127], np.int8)))
+    tf1.get_variable("dis/counts", initializer=const(np.array([-32768, -7, 32767], np.int16)))
+    tf1.get_variable("dis/u16", initializer=const(np.array([0, 1, 65535], np.uint16)))
+    tf1.get_variable("dis/u32", initializer=const(np.array([0, 4294967295], np.uint32)))
+    tf1.get_variable("dis/u64", initializer=const(np.array([18446744073709551615, 5], np.uint64)))
+    tf1.get_variable("dis/phase", initializer=const(
+        (rng.standard_normal(3) + 1j * rng.standard_normal(3)).astype(np.complex64)))
+    tf1.get_variable("gen/c128", initializer=const(rng.standard_normal(2) + 1j))
+    tf1.get_variable("gen/note", initializer=const("a kept string"))
+    tf1.get_variable("gen/words", initializer=const(np.array([b"ab", b"", b"x\x00\xff"], object)))
+    tf1.get_variable("dis/table", initializer=const(np.array([[b"a", b"bc"], [b"def", b"g"]],
+                                                             object)))
+    tf1.get_variable("dis/part16", initializer=const(np.arange(-6, 6, dtype=np.int16).reshape(4, 3)),
+                     partitioner=tf1.fixed_size_partitioner(2))
+
+
+def _v1_dtypes(tf1):
+    import tensorflow as tf
+    rng = np.random.default_rng(4)
+    const = lambda v: tf.constant(v)
+    tf1.get_variable("gen/dense/W", initializer=const(rng.standard_normal((2, 3)).astype(np.float32)))
+    tf1.get_variable("gen/big", initializer=const(rng.standard_normal((64, 64)).astype(np.float32)))
+    tf1.get_variable("gen/zeros", initializer=const(np.zeros((64, 64), np.float32)))
+    tf1.get_variable("dis/f64", initializer=const(np.float64(-1.5)))
+    tf1.get_variable("dis/i32", initializer=const(np.arange(-2, 3, dtype=np.int32)))
+    tf1.get_variable("dis/i64", initializer=const(np.array([-(1 << 40), 7])))
+    tf1.get_variable("gen/mask", initializer=const(np.array([0, 200, 255], np.uint8)))
+    tf1.get_variable("dis/counts", initializer=const(np.array([-32768, 5, 32767], np.int16)))
+    tf1.get_variable("dis/i8", initializer=const(np.array([-128, 127], np.int8)))
+    tf1.get_variable("dis/flags", initializer=const(np.array([True, False, True])))
+    tf1.get_variable("gen/note", initializer=const("a V1 string"))
+    tf1.get_variable("gen/words", initializer=const(np.array([b"ab", b"", b"x\x00\xff"], object)))
+    tf1.get_variable("gen/dense/W/Adam", initializer=const(np.zeros((2, 3), np.float32)))
+    tf1.get_variable("global_step", initializer=const(np.int64(100000)))
+
+
+def _v1_refused(tf1):
+    import tensorflow as tf
+    rng = np.random.default_rng(5)
+    tf1.get_variable("gen/w", initializer=tf.constant(np.ones(3, np.float32)))
+    tf1.get_variable("gen/f16", initializer=tf.constant(np.array([0.5, -2.0], np.float16)))
+    tf1.get_variable("dis/u16", initializer=tf.constant(np.array([1, 65535], np.uint16)))
+    tf1.get_variable("dis/phase", initializer=tf.constant(np.array([1 + 2j], np.complex64)))
+    tf1.get_variable("gen/part", initializer=tf.constant(
+        rng.standard_normal((7, 2)).astype(np.float32)), partitioner=tf1.fixed_size_partitioner(3))
+
+
 def _tf2(tf) -> None:
     rng = np.random.default_rng(2)
     os.makedirs(os.path.join(HERE, "tf2"), exist_ok=True)
@@ -105,24 +174,23 @@ def _tf2(tf) -> None:
     tf.train.Checkpoint(model=module).save(os.path.join(HERE, "tf2", "ckpt"))
 
 
-def _digest(value: np.ndarray) -> str:
-    if value.dtype.name == "bfloat16":
-        value = value.astype(np.float32)
-    return hashlib.sha256(np.ascontiguousarray(value).tobytes()).hexdigest()
-
-
 def manifest(tf) -> dict:
+    from bundle_writer import digest
     out = {}
-    for key, prefix in V2_BUNDLES.items():
-        reader = tf.train.load_checkpoint(os.path.join(HERE, prefix))
+    for key, prefix in CHECKPOINTS.items():
+        path = os.path.join(HERE, prefix)
+        reader = tf.train.load_checkpoint(path)
         dtypes = reader.get_variable_to_dtype_map()
         tensors = {}
         for name, shape in sorted(reader.get_variable_to_shape_map().items()):
             entry = {"dtype": dtypes[name].name, "shape": list(shape)}
-            if dtypes[name] != tf.string:
-                entry["sha256"] = _digest(np.asarray(reader.get_tensor(name)))
+            try:
+                entry["sha256"] = digest(np.asarray(reader.get_tensor(name)))
+            except tf.errors.OpError as e:
+                entry["refused"] = e.message
             tensors[name] = entry
-        out[key] = {"prefix": prefix, "tensors": tensors}
+        fmt = "V2" if os.path.exists(path + ".index") else "V1"
+        out[key] = {"prefix": prefix, "format": fmt, "tensors": tensors}
     return out
 
 
@@ -133,7 +201,12 @@ def main() -> None:
     _saver_bundle(tf, "dtypes", _dtypes)
     _saver_bundle(tf, "sharded", _sharded, sharded=True, devices=2)
     _saver_bundle(tf, "string", _string)
-    _saver_bundle(tf, "v1", _string, version=tf.compat.v1.train.SaverDef.V1)
+    _saver_bundle(tf, "mixed", _mixed)
+    v1 = tf.compat.v1.train.SaverDef.V1
+    _saver_bundle(tf, "v1", _string, version=v1)
+    _saver_bundle(tf, "v1_dtypes", _v1_dtypes, version=v1)
+    _saver_bundle(tf, "v1_sharded", _sharded, sharded=True, devices=2, version=v1)
+    _saver_bundle(tf, "v1_refused", _v1_refused, version=v1)
     _tf2(tf)
     with open(os.path.join(HERE, "manifest.json"), "w") as f:
         json.dump({"tensorflow": tf.__version__, "bundles": manifest(tf)}, f, indent=1,
