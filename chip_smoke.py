@@ -126,8 +126,9 @@ final line):
      batch: equal losses, the peak memory of each
  15. multi-rank (in a temporary directory): the training CLIs under
      ``python -m torch.distributed.run --standalone``, each rank running
-     ``chip_smoke.py --rank-run`` (the CLI's ``main`` and a record of its
-     launches, bytes and shard hashes). (a) ``train_sngan`` on 2 gloo ranks
+     ``chip_smoke.py --rank-run`` (each CLI's ``main`` in turn and a record
+     of its launches, bytes and shard hashes; the 2-rank runs (a), (b) and
+     (c) share one launcher start). (a) ``train_sngan`` on 2 gloo ranks
      sharing the card (batch 64, 32 per rank, bf16, 8 steps) against the
      one-rank run of the same command, both with plain SGD in place of Adam
      (an update linear in the gradient): every logged metric within 5e-2,
@@ -144,10 +145,11 @@ final line):
      the one-rank parameters, Adam slots and EMA, 6 launches per step per
      rank over 19 weights; (e) its checkpoint restored by one rank, whose
      slices equal every rank's shards bit for bit; (c) ``train_pggan`` to
-     1024^2 under DP 2 in fp32 (1 step per phase, 2 images per rank at
-     1024^2): 6 fade-in launches per transition step on each rank, the
-     1024^2 transition step's metrics within 5e-3 relative of one rank; (d)
-     ``train_sngan`` on a one-rank NCCL group, as (a) with SGD: its metrics
+     64^2 under DP 2 in fp32 (1 step per phase, 8 images per rank): 6
+     fade-in launches per transition step on each rank, the 64^2
+     transition step's metrics within 5e-3 relative of one rank; (d)
+     ``train_sngan`` on a one-rank NCCL group (its process started with the
+     launcher's environment, no launcher), as (a) with SGD: its metrics
      within 1e-6 of (a)'s run without a mesh (a 'data' axis of one rank
      makes no collective in the step), and the port's collectives (an
      autograd all-reduce and its backward, an all-gather) on CUDA tensors
@@ -156,7 +158,8 @@ final line):
      ``power_iteration_kernel``, and ``--debug-nans`` raising
      ``FloatingPointError`` on a NaN injected into D's SN weight (named by
      the kernel's wrapper) and into G's Dense weight (named by the
-     operator); then the fade-in at the shapes one rank of (c) gives it
+     operator); then the fade-in at the shapes one rank of a DP 2 1024^2
+     rung gives it (2 images per rank)
  16. spatial partitioning (the 'sp' axis, ``--sp-shards``) and the
      space-to-depth top level (``--s2d-from``, default 512), ranks under
      ``torch.distributed.run`` sharing the card through gloo: (a) the 1024^2
@@ -167,17 +170,18 @@ final line):
      each rank at the half-height shapes, ms/step, and rank 0's host ms per
      step in halo exchanges, height gathers and 'sp' sums; (b)
      ``train_pggan --sp-shards 2`` on 4 ranks (DP x SP 2 x 2), the ladder
-     4^2 -> 1024^2 in fp32, 1 step per phase, the default ``--s2d-from 512``,
-     with SGD for Adam (an update linear in the gradient) against the
-     one-process run: every logged metric of the 1024^2 phases within 1e-3
-     relative (1e-4 absolute), 48 fade-in launches per rank (rank 0's 8
-     grids besides); (c) the 1024^2 transition step on one rank with
+     4^2 -> 64^2 in fp32, 1 step per phase, ``--s2d-from 32`` (the S2D top
+     level at the ladder's last two rungs, as 512 puts it at a 1024^2
+     ladder's), with SGD for Adam (an update linear in the gradient) against
+     the one-process run: every logged metric of the 64^2 phases within
+     1e-3 relative (1e-4 absolute), 24 fade-in launches per rank (rank 0's
+     4 grids besides); (c) the 1024^2 transition step on one rank with
      ``--s2d-from 512`` and ``0`` from one state: step 1's metrics within
      5e-2, ms/step both ways in turns, the step's peak memory both ways; (d)
-     (b)'s 1024^2 stabilize checkpoint restored by a one-process
+     (b)'s 64^2 stabilize checkpoint restored by a one-process
      ``cli.sample``: its grid against the 4-rank run's own writer's, within
      one level of 255 at under 0.1% of the values; then the fade-in at the
-     shapes an 'sp' rank gives it
+     shapes an 'sp' rank of the 1024^2 rung gives it
  17. the tools (``gan_lib_tensorflow_tpu_torch/tools/``), each run in this
      process at the reference tool's configuration with few timed steps:
      every JSON row with the reference's keys and no ``error``;
@@ -262,6 +266,24 @@ final line):
      test scaffolding writer as V1 and as V2 with the same values and a
      kept string, uint8 and int16 variable: both imported by the port's
      tool, equal reports, the two step-0 checkpoints byte-equal
+ 20. the last tools on the card: (a) the doctor (``python -m
+     ...tools.doctor``, every probe, in a subprocess): rc 0, its card name
+     and power limit those of phase 1, both kernels built for sm_90a and
+     launched once each within phases 3-4's tolerances; its seconds and
+     each probe's; (b) ``tools.prepack_synthetic --n 64 --size 128
+     --resolutions 128,64,32,16,8,4 --num-classes 0 --seed 0``: the store's
+     digest equal to the reference tool's on the same flags (committed by
+     the CPU test in ``tests/torch_fixtures/prepack_synthetic.json``),
+     images/s; then ``train_pggan --data <that store> --final-resolution
+     128`` at full width, 2 steps per phase: 6 fade-in launches per
+     transition step and one per transition phase's grid; (c)
+     ``cli.evaluate --model pggan --resolution 128`` on (b)'s last
+     checkpoint against the store (160 samples, 64 SWD images per side),
+     written as ``eval_karras_128.json``: the 4 SWD levels, their mean and
+     MS-SSIM finite; (d) ``tools.plot_run`` on phase 10's ``log.jsonl``,
+     ``tools.plot_ladder`` on (b)'s run and ``tools.plot_dose_response`` on
+     (c)'s JSON: each PNG decoded by ``data/codec.py`` at the tool's size,
+     its ``Title`` text chunk the tool's title, pixels drawn in each panel
 
 The power iteration's ``launches`` in the kernels' record are those of
 phase 5's SNGAN run, phase 12's conditional SNGAN run, every run of
@@ -272,7 +294,9 @@ loop-level resume of the imported SNGAN (``train_loop`` called directly:
 no CLI resumes an import); the
 fade-in's are those of phase 6's ladder, phase 14's ladder (b), the ladders
 and steps of phases 15 and 16 (each rank's and the one-process runs') and
-phase 18's ladder and 1024^2 steps.
+phase 18's ladder and 1024^2 steps, and phase 20's ladder (b). The
+doctor's launches (one of each kernel, in its own process) are printed in
+phase 20 and not counted here.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -283,6 +307,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import copy
+import gc
 import io
 import json
 import math
@@ -340,6 +365,7 @@ MR_RANKS = 2
 MR_SNGAN_STEPS, MR_LOG_EVERY = 8, 4        # (a): sec_per_step of steps 5-8
 MR_IMAGENET_BATCH, MR_IMAGENET_STEPS = 16, 3
 MR_TRACE_STEPS = 2                           # (f): a window of 3 steps, 11-13
+MR_LADDER_RES = 64                           # (c): the DP 2 ladder's last rung
 # the fade-in's two blends of the 1024^2 transition step at 2 images per rank
 FADEIN_HALF_SHAPES = [(2, 3, 1024, 1024), (2, 32, 512, 512)]
 # spatial partitioning (phase 16): (a) the 1024^2 transition phase on 2 'sp'
@@ -347,6 +373,8 @@ FADEIN_HALF_SHAPES = [(2, 3, 1024, 1024), (2, 32, 512, 512)]
 # the composed top level on one rank, warm-up then timed steps in turns
 SP_STEPS = 4
 S2D_WARM, S2D_TIMED, S2D_ROUNDS = 2, 3, 2
+# (b): the DP x SP ladder's last rung, with the S2D top level at its last two
+SP_LADDER_RES, SP_LADDER_S2D = 64, 32
 # the fade-in's blends on one 'sp' rank of the 1024^2 transition step: half
 # the height at batch 4 ('sp' 2) and at 2 images per 'data' rank (DP x SP 2 x 2)
 FADEIN_SP_SHAPES = [(4, 3, 512, 1024), (4, 32, 256, 512), (2, 3, 512, 1024), (2, 32, 256, 512)]
@@ -376,6 +404,14 @@ WEBP_STEPS = 2
 TF1_FIXTURES = os.path.join("tests", "torch_fixtures", "tf1")
 TF1_STEPS = 3
 TF1_RATE_BYTES = 64 << 20  # one tensor for the reader's rate
+# the last tools (phase 20): prepack_synthetic's flags and the digest of the
+# reference tool's store on them (tests/test_torch_last_tools.py writes it),
+# the ladder trained from that store, and its eval
+SYNTH_FIXTURE = os.path.join("tests", "torch_fixtures", "prepack_synthetic.json")
+SYNTH_RES, SYNTH_STEPS = 128, 2
+SYNTH_EVAL_SAMPLES, SYNTH_SWD_SAMPLES = 160, 64
+DOCTOR_TIMEOUT = 300
+PHASE_STARTS = {}  # phase number -> time.perf_counter() at its start
 
 
 def nvidia_smi(fields: str) -> str:
@@ -385,6 +421,7 @@ def nvidia_smi(fields: str) -> str:
 
 
 def phase(name: str) -> None:
+    PHASE_STARTS[int(name.split()[0])] = time.perf_counter()
     print(f"== {name}", flush=True)
 
 
@@ -1567,8 +1604,17 @@ def pggan_to_the_end(card: str, tmp: str) -> int:
     ckpt_dir = os.path.join(run, f"{PGE_RES}x{PGE_RES}_stabilize", "ckpt")
     try:
         for source in (pyr, "device-rich"):
-            recs = []
+            recs, held_mib = [], []
             for _ in range(2):
+                # the peak the eval reports counts what this process holds
+                # when it starts: collect the garbage earlier phases left in
+                # reference cycles, which would otherwise be freed whenever a
+                # full collection happened to run, before one call and not
+                # before its repeat
+                before = torch.cuda.memory_allocated()
+                gc.collect()
+                after = torch.cuda.memory_allocated()
+                held_mib.append((round(before / 2**20, 1), round(after / 2**20, 1)))
                 recs.append(evaluate.main([
                     "--model", "pggan", "--resolution", str(PGE_RES), "--width-mul",
                     str(PGE_WIDTH), "--ckpt-dir", ckpt_dir, "--data", source,
@@ -1589,7 +1635,8 @@ def pggan_to_the_end(card: str, tmp: str) -> int:
                   + json.dumps(rec) + f"; the repeat agrees in every digit (cuDNN "
                   f"deterministic); MS-SSIM {rec['ms_ssim_pairs'] / ms_s:.1f} pairs/s "
                   f"({ms_s:.2f} s), SWD {rec['swd_images'] / rec['swd_seconds']:.1f} images/s "
-                  f"per side ({rec['swd_seconds']} s), peak {rec['swd_peak_hbm_gb']} GiB; "
+                  f"per side ({rec['swd_seconds']} s), peak {rec['swd_peak_hbm_gb']} GiB "
+                  f"(MiB held before each call, before and after collecting garbage: {held_mib}); "
                   f"TF32 flags at torch's defaults  [{card}]")
 
         # (e) card vs CPU under the same flags: MS-SSIM on images at the top
@@ -1763,48 +1810,70 @@ def _sha_all(module) -> str:
     return h.hexdigest()
 
 
-def rank_run(out: str, module: str, argv: list, sgd: bool = False) -> None:
+def rank_run(jobs_file: str) -> None:
     """One rank of a ``torch.distributed.run`` launch (``chip_smoke.py
-    --rank-run [--sgd] OUT MODULE ARGV...``): the CLI's ``main(argv)`` (with
-    SGD for Adam under ``sgd``), then this rank's kernel launches, seconds,
-    peak memory, state bytes and shard hashes to ``OUT.rank<r>.json``. Under
-    'model' sharding also the sha256 of the full-size weights the networks
-    compute with, and rank 0 saves them to ``OUT.weights.pt``. On an NCCL
-    group it also runs the port's collectives on CUDA tensors and checks
-    their results."""
+    --rank-run JOBS.json``): each job ``[out, module, argv, sgd]`` of the
+    file in turn, over the one process group the launch made (each CLI's
+    mesh is built on it), then the group is left."""
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(jobs_file) as f:
+        jobs = json.load(f)
+    # host intervals of each collective (a gloo collective's includes its
+    # wait for the card to reach it)
+    calls = []
+    for name in ("all_reduce", "all_gather"):
+        setattr(dist, name, timed_into(getattr(dist, name), calls))
+    for out, module, argv, sgd in jobs:
+        calls.clear()
+        rank_job(out, module, argv, sgd, calls)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def timed_into(fn, sink: list):
+    """``fn``, appending each call's host interval to ``sink``."""
+    def wrapper(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            sink.append((t, time.perf_counter()))
+    return wrapper
+
+
+def rank_job(out: str, module: str, argv: list, sgd: bool, calls: list) -> None:
+    """One job of ``rank_run``: the CLI's ``main(argv)`` (with SGD for Adam
+    under ``sgd``), then this rank's kernel launches, seconds, peak memory,
+    state bytes and shard hashes to ``OUT.rank<r>.json``. Under 'model'
+    sharding also the sha256 of the full-size weights the networks compute
+    with, and rank 0 saves them to ``OUT.weights.pt``. On an NCCL group it
+    also runs the port's collectives on CUDA tensors and checks their
+    results."""
     import importlib
     import torch
     import torch.distributed as dist
     import torch.distributed.nn.functional as dist_fn
     from gan_lib_tensorflow_tpu_torch.ops import fadein as fd
     from gan_lib_tensorflow_tpu_torch.ops import power_iteration as pi
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cli = importlib.import_module(f"gan_lib_tensorflow_tpu_torch.cli.{module}")
-    # host intervals of each train step and of each collective in it (a
-    # gloo collective's includes its wait for the card to reach it)
-    steps, calls = [], []
-
-    def timed(fn, sink):
-        def wrapper(*args, **kwargs):
-            t = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                sink.append((t, time.perf_counter()))
-        return wrapper
-
-    for name in ("all_reduce", "all_gather"):
-        setattr(dist, name, timed(getattr(dist, name), calls))
-    if hasattr(cli, "make_train_step"):
-        make = cli.make_train_step
-        cli.make_train_step = lambda spec: timed(make(spec), steps)
-    if sgd:
-        sgd_for_adam()
+    steps = []  # host intervals of each train step
+    make = getattr(cli, "make_train_step", None)
+    if make is not None:
+        cli.make_train_step = lambda spec: timed_into(make(spec), steps)
+    undo = sgd_for_adam() if sgd else (lambda: None)
     pi.launches = fd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    st = cli.main(argv)
-    torch.cuda.synchronize()
+    try:
+        st = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+        if make is not None:
+            cli.make_train_step = make
     mesh = st.mesh
     rec = {"rank": mesh.rank if mesh else 0, "backend": mesh.backend if mesh else None,
            "mesh": dict(zip(mesh.axis_names, mesh.shape)) if mesh else None,
@@ -1834,25 +1903,42 @@ def rank_run(out: str, module: str, argv: list, sgd: bool = False) -> None:
                                  and all(torch.equal(q, x.detach()) for q in parts))
     with open(f"{out}.rank{rec['rank']}.json", "w") as f:
         json.dump(rec, f)
-    if dist.is_initialized():
-        dist.destroy_process_group()
 
 
-def torchrun(n: int, out: str, module: str, argv: list, timeout: float = 600,
-             sgd: bool = False, sp_steps: int = 0) -> list:
+def torchrun(n: int, jobs: list, timeout: float = 600, sp_steps: int = 0) -> list:
     """``python -m torch.distributed.run --standalone --nproc_per_node n``
-    of ``module``'s ``main(argv)`` through ``rank_run`` (SGD for Adam under
-    ``sgd``), or with ``sp_steps`` of ``sp_step_run``'s steps of the PGGAN
-    phase that ``argv`` (``train_pggan``'s flags) gives; every process it
-    starts is stopped on the way out. Returns the ranks' records."""
+    of ``chip_smoke.py``: each rank runs the ``jobs`` (``[out, module,
+    argv, sgd]``: the CLI module's ``main(argv)``, SGD for Adam under
+    ``sgd``) in turn through ``rank_run``, one launcher start for them all;
+    or, with ``sp_steps``, the one job's ``sp_step_run`` steps of the PGGAN
+    phase that its ``argv`` (``train_pggan``'s flags) gives. One rank needs
+    no launcher: its process is started with the environment the launcher
+    would give it (``RANK``, ``WORLD_SIZE``, ``LOCAL_*``, ``MASTER_*``).
+    Every process it starts is stopped on the way out. Returns each job's
+    ranks' records."""
     import signal
-    run = (["--sp-run", out, str(sp_steps)] if sp_steps
-           else ["--rank-run", *(["--sgd"] if sgd else []), out, module])
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", str(n), os.path.abspath(__file__), *run, *argv]
+    import socket
+    if sp_steps:
+        (out, _, argv, _), = jobs
+        run = ["--sp-run", out, str(sp_steps), *argv]
+    else:
+        with open(f"{jobs[0][0]}.jobs.json", "w") as f:
+            json.dump(jobs, f)
+        run = ["--rank-run", f"{jobs[0][0]}.jobs.json"]
+    env = None
+    if n == 1:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        env = {**os.environ, "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+               "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+        cmd = [sys.executable, os.path.abspath(__file__), *run]
+    else:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", str(n), os.path.abspath(__file__), *run]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                            process_group=0)
+                            process_group=0, env=env)
     try:
         text, _ = proc.communicate(timeout=timeout)
     finally:
@@ -1862,15 +1948,18 @@ def torchrun(n: int, out: str, module: str, argv: list, timeout: float = 600,
     for line in text.splitlines():
         if line.startswith(("[mesh]", "[profiler]")):
             print("   ", line)
+    names = " + ".join(job[1] or "train_pggan" for job in jobs)
     if proc.returncode != 0:
         print(text[-6000:])
-    check(proc.returncode == 0, f"{module} on {n} ranks exited {proc.returncode}")
+    check(proc.returncode == 0, f"{names} on {n} ranks exited {proc.returncode}")
     recs = []
-    for r in range(n):
-        with open(f"{out}.rank{r}.json") as f:
-            recs.append(json.load(f))
-    print(f"    {module} on {n} rank(s): {time.perf_counter() - t0:.1f} s wall with the "
-          "launcher's start", flush=True)
+    for out, *_ in jobs:
+        recs.append([])
+        for r in range(n):
+            with open(f"{out}.rank{r}.json") as f:
+                recs[-1].append(json.load(f))
+    print(f"    {names} on {n} rank(s): {time.perf_counter() - t0:.1f} s wall with the "
+          "processes' start", flush=True)
     return recs
 
 
@@ -1917,14 +2006,30 @@ def multi_rank(card: str, tmp: str, parts: str = "abcdf") -> tuple:
         torch.cuda.synchronize()
         return st, pi.launches, fd.launches, time.perf_counter() - t0
 
-    # (a) SNGAN CIFAR-10, batch 64 (32 per rank), bf16, gloo
+    # (a) SNGAN CIFAR-10, batch 64 (32 per rank), bf16, gloo, with SGD in
+    # place of Adam, an update linear in the gradient, so the runs' weights
+    # part in proportion to their gradients' difference
     sn_base = ["--data", "device-fake", "--batch-size", "64", "--compute-dtype", "bf16"]
     sn = sn_base + ["--steps", str(MR_SNGAN_STEPS), "--log-every", "1"]
+    # (b) SNGAN-projection ImageNet-128, full width, 'data' 1 x 'model' 2
+    im = ["--data", "device-fake", "--batch-size", str(MR_IMAGENET_BATCH), "--compute-dtype",
+          "bf16", "--steps", str(MR_IMAGENET_STEPS), "--log-every", "1"]
+    # (c) PGGAN to the MR_LADDER_RES^2 transition, DP 2 (batch 16 -> 8 per rank)
+    res, n_trans = MR_LADDER_RES, int(math.log2(MR_LADDER_RES // 4))
+    pg = ["--data", "device-fake", "--final-resolution", str(res), "--steps-per-phase", "1",
+          "--log-every", "1", "--compute-dtype", "fp32", "--sample-every", "1000",
+          "--ckpt-every", "1000"]
+    # the three 2-rank runs share one launcher start, each rank running them in turn
+    jobs = {"a": [os.path.join(tmp, "a"), "train_sngan",
+                  sn + ["--out-dir", os.path.join(tmp, "a2")], True],
+            "b": [os.path.join(tmp, "b"), "train_sngan_imagenet",
+                  im + ["--tp-shards", "2", "--out-dir", os.path.join(tmp, "b2")], False],
+            "c": [os.path.join(tmp, "c"), "train_pggan",
+                  pg + ["--out-dir", os.path.join(tmp, "c2")], False]}
+    jobs = {k: v for k, v in jobs.items() if k in parts}
+    ranked = dict(zip(jobs, torchrun(MR_RANKS, list(jobs.values())))) if jobs else {}
     if "a" in parts:
-        # with SGD in place of Adam, an update linear in the gradient, so the
-        # runs' weights part in proportion to their gradients' difference
-        recs = torchrun(MR_RANKS, os.path.join(tmp, "a"), "train_sngan",
-                        sn + ["--out-dir", os.path.join(tmp, "a2")], sgd=True)
+        recs = ranked["a"]
         undo = sgd_for_adam()
         try:
             one, one_pi, _, _ = one_rank(train_sngan.main,
@@ -1993,11 +2098,7 @@ def multi_rank(card: str, tmp: str, parts: str = "abcdf") -> tuple:
         del one
 
     if "b" in parts:
-        # (b) SNGAN-projection ImageNet-128, full width, 'data' 1 x 'model' 2
-        im = ["--data", "device-fake", "--batch-size", str(MR_IMAGENET_BATCH), "--compute-dtype", "bf16",
-              "--steps", str(MR_IMAGENET_STEPS), "--log-every", "1"]
-        recs = torchrun(MR_RANKS, os.path.join(tmp, "b"), "train_sngan_imagenet",
-                        im + ["--tp-shards", "2", "--out-dir", os.path.join(tmp, "b2")])
+        recs = ranked["b"]
         one, one_pi, _, _ = one_rank(train_sngan_imagenet.main,
                                      im + ["--out-dir", os.path.join(tmp, "b1")])
         full = state_bytes(one)
@@ -2069,29 +2170,25 @@ def multi_rank(card: str, tmp: str, parts: str = "abcdf") -> tuple:
         del one, restored
 
     if "c" in parts:
-        # (c) PGGAN to the 1024^2 transition, DP 2 (batch 4 -> 2 per rank)
-        pg = ["--data", "device-fake", "--final-resolution", "1024", "--steps-per-phase", "1",
-              "--log-every", "1", "--compute-dtype", "fp32", "--sample-every", "1000",
-              "--ckpt-every", "1000"]
-        recs = torchrun(MR_RANKS, os.path.join(tmp, "c"), "train_pggan",
-                        pg + ["--out-dir", os.path.join(tmp, "c2")])
+        recs = ranked["c"]
         _, _, one_fd, _ = one_rank(train_pggan.main, pg + ["--out-dir", os.path.join(tmp, "c1")])
-        # 6 per transition step (8 transitions of 1 step), and one per transition
-        # phase's sample grid, which rank 0 alone draws
+        # 6 per transition step (one step per transition), and one per
+        # transition phase's sample grid, which rank 0 alone draws
         for rec in recs:
-            want = 48 + (8 if rec["rank"] == 0 else 0)
+            want = 6 * n_trans + (n_trans if rec["rank"] == 0 else 0)
             check(rec["fd"] == want, f"(c) rank {rec['rank']}: {rec['fd']} fade-in launches, "
                                      f"want {want}")
-        check(one_fd == 56, f"(c) one rank: {one_fd} fade-in launches, want 56")
+        check(one_fd == 7 * n_trans, f"(c) one rank: {one_fd} fade-in launches, "
+                                     f"want {7 * n_trans}")
         fd_total += sum(r["fd"] for r in recs) + one_fd
-        phase_dir = "1024x1024_transition"
+        phase_dir = f"{res}x{res}_transition"
         l2, l1 = (read_log(os.path.join(tmp, c, phase_dir)) for c in ("c2", "c1"))
-        # 16 one-step phases come before it, each Adam update amplifying the
-        # summation-order noise of the sums across ranks
-        pg_err = losses_close(l2, l1, 5e-3, 1e-3, "(c) PGGAN 1024^2 transition losses")
-        print(f"(c) train_pggan to 1024^2, DP 2 (2 images per rank at 1024^2), fp32: fade-in "
+        # the one-step phases before it each amplify, through an Adam update,
+        # the summation-order noise of the sums across ranks
+        pg_err = losses_close(l2, l1, 5e-3, 1e-3, f"(c) PGGAN {res}^2 transition losses")
+        print(f"(c) train_pggan to {res}^2, DP 2 (8 images per rank), fp32: fade-in "
               f"launches per rank {[r['fd'] for r in recs]} (6 per transition step, and rank 0's "
-              f"8 grids); the 1024^2 "
+              f"{n_trans} grids); the {res}^2 "
               f"transition step's metrics within 5e-3 relative of one rank (largest difference "
               f"{pg_err:.3e}: {l2[-1]} vs {l1[-1]}); ladder {max(r['seconds'] for r in recs):.1f} s "
               f"on 2 ranks; peak per rank {max(r['peak_mib'] for r in recs):.0f} MiB  [{card}]",
@@ -2100,8 +2197,8 @@ def multi_rank(card: str, tmp: str, parts: str = "abcdf") -> tuple:
     if "d" in parts:
         # (d) one rank on a one-rank NCCL group, through the same code path
         # (SGD, as (a)'s run without a mesh that it is compared with)
-        recs = torchrun(1, os.path.join(tmp, "d"), "train_sngan",
-                        sn + ["--out-dir", os.path.join(tmp, "d1")], sgd=True)
+        (recs,) = torchrun(1, [[os.path.join(tmp, "d"), "train_sngan",
+                                sn + ["--out-dir", os.path.join(tmp, "d1")], True]])
         check(recs[0]["backend"] == "nccl" and recs[0]["pi"] == 6 * MR_SNGAN_STEPS,
               f"(d) backend {recs[0]['backend']}, {recs[0]['pi']} launches")
         check(recs[0]["nccl_probe"], "(d) NCCL collectives on CUDA tensors gave wrong results")
@@ -2158,7 +2255,8 @@ def multi_rank(card: str, tmp: str, parts: str = "abcdf") -> tuple:
         print(f"(f) --debug-nans: a NaN in an SN weight of D raised FloatingPointError "
               f"'{msgs[0]}'; in G's Dense weight '{msgs[1]}'", flush=True)
 
-    # the fade-in at the shapes one rank of (c) gives it (2 images per rank)
+    # the fade-in at the shapes one rank of a DP 2 1024^2 rung gives it
+    # (2 images per rank)
     cl = torch.channels_last
     half = {}
     for shape in FADEIN_HALF_SHAPES:
@@ -2171,7 +2269,7 @@ def multi_rank(card: str, tmp: str, parts: str = "abcdf") -> tuple:
         check(err <= 1e-6, f"fade-in at {list(shape)}: {err:.3e} from its plain version")
         bound = 1e3 * 12 * a.numel() / PEAK_BYTES_PER_S
         half[tuple(shape)] = t
-        print(f"fadein_blend {list(shape)} channels-last (one rank of (c)): kernel "
+        print(f"fadein_blend {list(shape)} channels-last (one DP 2 rank at 1024^2): kernel "
               f"{1e3 * t['kernel']:.2f} us, plain {1e3 * t['plain']:.2f} us, torch.lerp "
               f"{1e3 * t['lerp']:.2f} us, bound {1e3 * bound:.2f} us, max abs err "
               f"{err:.3e}  [{card}]", flush=True)
@@ -2309,8 +2407,8 @@ def spatial_partitioning(card: str, tmp: str) -> tuple:
     # (a) the 1024^2 transition phase, bf16, on 2 'sp' ranks against one process
     a_argv = ["--data", "device-fake", "--device", "cuda", "--final-resolution", "1024",
               "--steps-per-phase", str(SP_STEPS), "--compute-dtype", "bf16"]
-    recs = torchrun(2, os.path.join(tmp, "a"), "train_pggan", a_argv + ["--sp-shards", "2"],
-                    sp_steps=SP_STEPS)
+    (recs,) = torchrun(2, [[os.path.join(tmp, "a"), None, a_argv + ["--sp-shards", "2"], False]],
+                       sp_steps=SP_STEPS)
     one = sp_step_run(None, SP_STEPS, a_argv)
     for rec in recs:
         check(rec["mesh"] == {"data": 1, "sp": 2}, f"(a) mesh {rec['mesh']}")
@@ -2345,12 +2443,13 @@ def spatial_partitioning(card: str, tmp: str) -> tuple:
           f"{max(r['peak_mib'] for r in recs):.0f} MiB, one process {one['peak_mib']:.0f} MiB  "
           f"[{card}]", flush=True)
 
-    # (b) the ladder under DP x SP 2 x 2, fp32, the default --s2d-from 512
-    pg = ["--data", "device-fake", "--final-resolution", "1024", "--steps-per-phase", "1",
+    # (b) the ladder under DP x SP 2 x 2, fp32, the S2D top level at its last two rungs
+    res, n_trans = SP_LADDER_RES, int(math.log2(SP_LADDER_RES // 4))
+    pg = ["--data", "device-fake", "--final-resolution", str(res), "--steps-per-phase", "1",
           "--log-every", "1", "--compute-dtype", "fp32", "--sample-every", "1000",
-          "--ckpt-every", "1000"]
-    recs = torchrun(4, os.path.join(tmp, "b"), "train_pggan",
-                    pg + ["--sp-shards", "2", "--out-dir", os.path.join(tmp, "b4")], sgd=True)
+          "--ckpt-every", "1000", "--s2d-from", str(SP_LADDER_S2D)]
+    (recs,) = torchrun(4, [[os.path.join(tmp, "b"), "train_pggan",
+                            pg + ["--sp-shards", "2", "--out-dir", os.path.join(tmp, "b4")], True]])
     undo = sgd_for_adam()
     try:
         fd.launches = 0
@@ -2360,27 +2459,29 @@ def spatial_partitioning(card: str, tmp: str) -> tuple:
     finally:
         undo()
     for rec in recs:
-        want = 48 + (8 if rec["rank"] == 0 else 0)
+        want = 6 * n_trans + (n_trans if rec["rank"] == 0 else 0)
         check(rec["mesh"] == {"data": 2, "sp": 2} and rec["fd"] == want,
               f"(b) rank {rec['rank']} on {rec['mesh']}: {rec['fd']} fade-in launches, want {want}")
-    check(one_fd == 56, f"(b) one process: {one_fd} fade-in launches, want 56")
+    check(one_fd == 7 * n_trans, f"(b) one process: {one_fd} fade-in launches, "
+                                 f"want {7 * n_trans}")
     fd_total += sum(r["fd"] for r in recs) + one_fd
     b_err = 0.0
-    for phase_dir in ("1024x1024_transition", "1024x1024_stabilize"):
+    for phase_dir in (f"{res}x{res}_transition", f"{res}x{res}_stabilize"):
         l4, l1 = (read_log(os.path.join(tmp, c, phase_dir)) for c in ("b4", "b1"))
         b_err = max(b_err, losses_close(l4, l1, 1e-3, 1e-4, f"(b) {phase_dir}"))
     print(f"(b) train_pggan --sp-shards 2 on 4 ranks (DP x SP 2 x 2, gloo, one card), the ladder "
-          f"4x4 -> 1024x1024 in fp32, 1 step per phase, --s2d-from 512, SGD for Adam: the 1024x1024 "
-          f"phases' metrics within 1e-3 of one process (largest difference {b_err:.3e}: "
-          f"{l4[-1]} vs {l1[-1]}); fade-in launches per rank {[r['fd'] for r in recs]} (6 per "
-          f"transition step, and rank 0's 8 grids); ladder {max(r['seconds'] for r in recs):.1f} s "
+          f"4x4 -> {res}x{res} in fp32, 1 step per phase, --s2d-from {SP_LADDER_S2D}, SGD for "
+          f"Adam: the {res}x{res} phases' metrics within 1e-3 of one process (largest difference "
+          f"{b_err:.3e}: {l4[-1]} vs {l1[-1]}); fade-in launches per rank "
+          f"{[r['fd'] for r in recs]} (6 per transition step, and rank 0's {n_trans} grids); "
+          f"ladder {max(r['seconds'] for r in recs):.1f} s "
           f"on 4 ranks; peak per rank {max(r['peak_mib'] for r in recs):.0f} MiB  [{card}]",
           flush=True)
 
     # (d) (b)'s checkpoint, written under 'sp' 2, sampled by one process
-    top = os.path.join(tmp, "b4", "1024x1024_stabilize")
+    top = os.path.join(tmp, "b4", f"{res}x{res}_stabilize")
     png = os.path.join(tmp, "d.png")
-    sample.main(["--model", "pggan", "--resolution", "1024", "--ckpt-dir",
+    sample.main(["--model", "pggan", "--resolution", str(res), "--ckpt-dir",
                  os.path.join(top, "ckpt"), "--n", "16", "--seed", "99", "--out", png,
                  "--device", "cuda"])
     mine, theirs = read_png(png), read_png(os.path.join(top, "sample_000001.png"))
@@ -2389,7 +2490,7 @@ def spatial_partitioning(card: str, tmp: str) -> tuple:
     n_off = int((diff > 0).sum())
     check(int(diff.max()) <= 1 and n_off <= 1e-3 * diff.size,
           f"(d) the one-process grid is {int(diff.max())} levels from the writer's at {n_off} values")
-    print(f"(d) the 'sp' 2 run's 1024x1024 stabilize checkpoint restored by one-process "
+    print(f"(d) the 'sp' 2 run's {res}x{res} stabilize checkpoint restored by one-process "
           f"cli.sample (16 samples, the writer's z): its grid {mine.shape} against the writer's "
           f"own: largest difference {int(diff.max())} level(s) of 255 at {n_off} of {diff.size} "
           f"values (the writer's G has the S2D top level, cli.sample's the composed one)",
@@ -3361,6 +3462,137 @@ def tf1_checkpoints(card: str, tmp: str) -> int:
     return launches
 
 
+def last_tools(card: str, kind: str, smi_line: str, tmp: str, run_log_dir: str) -> int:
+    """Phase 20, in the temporary directory ``tmp``: the doctor, the
+    synthetic pyramid and the ladder trained from it, its eval, and the
+    three plots (``plot_run`` on ``run_log_dir``, phase 10's run). Returns
+    the fade-in launches of its ladder."""
+    import numpy as np
+    import torch
+    from gan_lib_tensorflow_tpu_torch.cli import evaluate, train_pggan
+    from gan_lib_tensorflow_tpu_torch.data import codec, packed
+    from gan_lib_tensorflow_tpu_torch.ops import fadein as fd
+    from gan_lib_tensorflow_tpu_torch.tools import (figure, plot_dose_response, plot_ladder,
+                                                    plot_run, prepack_synthetic)
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    # (a) the doctor, every probe, in its own process
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "gan_lib_tensorflow_tpu_torch.tools.doctor"],
+                          cwd=root, capture_output=True, text=True, timeout=DOCTOR_TIMEOUT)
+    doctor_s = time.perf_counter() - t0
+    try:
+        report = json.loads(proc.stdout)
+    except ValueError:
+        report = None
+    if proc.returncode != 0 or report is None:
+        print(proc.stdout[-6000:], proc.stderr[-3000:])
+    check(proc.returncode == 0 and report is not None,
+          f"(a) the doctor exited {proc.returncode}: "
+          f"{report and report.get('verdict')}")
+    enum, launch = report["device_enumeration"]["result"], report["kernel_launch"]["result"]
+    check(enum["devices"][0]["name"] == kind,
+          f"(a) the doctor's card {enum['devices'][0]['name']!r}, phase 1's {kind!r}")
+    check(report["power"]["result"]["line"] == smi_line,
+          f"(a) the doctor's nvidia-smi line {report['power']['result']['line']!r}, "
+          f"phase 1's {smi_line!r}")
+    built = report["kernel_build"]["result"]
+    check(all(not built[k].get("error") for k in ("power_iteration", "fadein_blend"))
+          and "arch=compute_90a,code=sm_90a" in built["flags"],
+          f"(a) the doctor's kernel build: {built}")
+    for name in ("batched_power_iteration", "fadein_blend"):
+        check(launch[name]["launches"] == 1 and not launch[name].get("error"),
+              f"(a) the doctor's {name} launch: {launch[name]}")
+    probes = ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in report.items()
+                       if isinstance(v, dict) and "seconds" in v)
+    print(f"(a) doctor: rc 0, {doctor_s:.2f} s wall ({report['seconds']:.2f} s of probes side by "
+          f"side): {probes}; verdict {report['verdict']!r}; libraries "
+          f"{[built[k].get('elf') for k in ('power_iteration', 'fadein_blend')]}; launches "
+          f"(in its probe's process, not counted below): batched_power_iteration "
+          f"{launch['batched_power_iteration']['launches']} (max abs err "
+          f"{launch['batched_power_iteration']['max_abs_err']:.3e}), fadein_blend "
+          f"{launch['fadein_blend']['launches']} (max abs err "
+          f"{launch['fadein_blend']['max_abs_err']:.3e})  [{card}]", flush=True)
+
+    # (b) the synthetic pyramid, byte-equal to the reference tool's, and the ladder on it
+    with open(os.path.join(root, SYNTH_FIXTURE)) as f:
+        fixture = json.load(f)
+    store = os.path.join(tmp, "pyr128")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        prepack_synthetic.main(["--out", store] + fixture["flags"])
+    made = json.loads(buf.getvalue().strip().splitlines()[-1])
+    digest = packed.store_digest(store)
+    check(digest == fixture["store_digest"],
+          f"(b) prepack_synthetic's store {digest} is not the reference tool's "
+          f"{fixture['store_digest']}")
+    print(f"(b) prepack_synthetic {' '.join(fixture['flags'])}: {made['packed']} images at "
+          f"{made['resolutions']} in {made['seconds']} s, {made['img_per_s']} images/s on the "
+          f"card's host; store digest {digest[:16]} equal to the reference tool's", flush=True)
+    run = os.path.join(tmp, "ladder128")
+    n_trans = int(math.log2(SYNTH_RES // 4))
+    fd.launches = 0
+    t0 = time.perf_counter()
+    train_pggan.main(["--data", store, "--device", "cuda", "--final-resolution", str(SYNTH_RES),
+                      "--steps-per-phase", str(SYNTH_STEPS), "--log-every", "1",
+                      "--ckpt-every", str(SYNTH_STEPS), "--sample-every", "1000",
+                      "--out-dir", run])
+    torch.cuda.synchronize()
+    ladder_s, launches = time.perf_counter() - t0, fd.launches
+    want = 6 * SYNTH_STEPS * n_trans + n_trans  # and one per transition phase's grid
+    check(launches == want, f"(b) {launches} fade-in launches in the ladder, want {want}")
+    logs = [r for d in os.listdir(run) if os.path.isdir(os.path.join(run, d))
+            for r in read_log(os.path.join(run, d))]
+    check(len(logs) == SYNTH_STEPS * (2 * n_trans + 1) and all(
+        math.isfinite(v) for r in logs for v in r.values()), "(b) non-finite ladder metrics")
+    print(f"(b) train_pggan --data <that pyramid> 4^2 -> {SYNTH_RES}^2 at full width, "
+          f"{SYNTH_STEPS} steps per phase: {ladder_s:.1f} s, fade-in launches {launches} "
+          f"({n_trans} transitions x {SYNTH_STEPS} steps x 6, and {n_trans} grids), every "
+          f"metric finite  [{card}]", flush=True)
+
+    # (c) the eval of its last checkpoint against the store, as the dose-response JSON
+    out_json = os.path.join(run, "eval_karras_128.json")
+    t0 = time.perf_counter()
+    rec = evaluate.main(["--model", "pggan", "--resolution", str(SYNTH_RES), "--device", "cuda",
+                         "--ckpt-dir", os.path.join(run, f"{SYNTH_RES}x{SYNTH_RES}_stabilize",
+                                                    "ckpt"),
+                         "--data", store, "--n-samples", str(SYNTH_EVAL_SAMPLES),
+                         "--swd-samples", str(SYNTH_SWD_SAMPLES), "--out-json", out_json])
+    eval_s = time.perf_counter() - t0
+    keys = plot_dose_response.LEVEL_KEYS + ("ms_ssim",)
+    check(all(math.isfinite(rec[k]) for k in keys) and os.path.isfile(out_json),
+          f"(c) eval record {rec}")
+    print(f"(c) cli.evaluate --model pggan --resolution {SYNTH_RES} on the last checkpoint "
+          f"against the store: {eval_s:.1f} s, " + ", ".join(f"{k} {rec[k]:.4g}" for k in keys)
+          + f" ({rec['swd_images']} SWD images per side)  [{card}]", flush=True)
+
+    # (d) the three plots, each read back through the port's decoder
+    budget = SYNTH_STEPS * 16  # images per phase: 2 steps of the ladder's batch 16 at 128^2
+    plots = [
+        (plot_run, [run_log_dir, "--out", os.path.join(tmp, "run.png")], plot_run.SIZE_LOSSES,
+         None),
+        (plot_ladder, [run, "--out", os.path.join(tmp, "ladder.png")], plot_ladder.SIZE, None),
+        (plot_dose_response, ["--run", f"{run}={budget}", "--out", os.path.join(tmp, "dose.png")],
+         plot_dose_response.SIZE, plot_dose_response.TITLE)]
+    colours = np.array(list(figure.TAB10.values()) + [figure.BLACK], np.uint8)
+    for module, argv, size, title in plots:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            check(module.main(argv) == 0, f"(d) {module.__name__} failed")
+        path = argv[argv.index("--out") + 1]
+        img, text = codec.decode_rgb(path), codec.png_text(path)
+        check(img.shape == (*size, 3), f"(d) {path}: {img.shape}, want {size}")
+        check(text.get("Title") and (title is None or text["Title"] == title),
+              f"(d) {path}: title {text.get('Title')!r}")
+        drawn = int((img.reshape(-1, 1, 3) == colours[None]).all(-1).any(-1).sum())
+        check(drawn > 0, f"(d) {path}: no series drawn")
+        print(f"(d) {module.__name__.rsplit('.', 1)[-1]}: {buf.getvalue().strip()}; decoded "
+              f"{img.shape[1]}x{img.shape[0]}, {drawn} pixels in series colours, title "
+              f"{text['Title']!r}, "
+              f"{len(text.get('Description', '').splitlines())} panel line(s)", flush=True)
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -3660,8 +3892,10 @@ def main() -> None:
     phase("10 data layer and north star: CIFAR-10 held on the card")
     t10 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    kept = tempfile.mkdtemp(prefix="chip_smoke_run_")  # its SNGAN log, for phase 20's plot
     try:
         data_layer_and_north_star(card, tmp)
+        shutil.copy(os.path.join(tmp, "sngan_cifar", "log.jsonl"), kept)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 10: {time.perf_counter() - t10:.1f} s  [{card}]")
@@ -3747,6 +3981,20 @@ def main() -> None:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 19: {time.perf_counter() - t19:.1f} s  [{card}]")
 
+    phase("20 the last tools on the card: doctor, synthetic pyramid, its ladder and eval, plots")
+    t20 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        synth_fd = last_tools(card, kind, card, tmp, kept)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(kept, ignore_errors=True)
+    print(f"phase 20: {time.perf_counter() - t20:.1f} s  [{card}]")
+    ends = sorted(PHASE_STARTS.items()) + [(None, time.perf_counter())]
+    print("phase seconds: " + ", ".join(f"{n} {t1 - t0:.1f}" for (n, t0), (_, t1)
+                                        in zip(ends, ends[1:]))
+          + f"; total {ends[-1][1] - ends[0][1]:.1f} s  [{card}]", flush=True)
+
     print(json.dumps({"kernels": [{
         "name": "batched_power_iteration",
         "route": "cuda",
@@ -3764,7 +4012,7 @@ def main() -> None:
         "route": "cuda",
         "source": "gan_lib_tensorflow_tpu_torch/csrc/fadein_blend.cu",
         "replaces": "gan_lib_tensorflow_tpu/ops/pallas_kernels.py:122",
-        "launches": ladder_launches + pyramid_launches + mr_fd + sp_fd + folder_fd,
+        "launches": ladder_launches + pyramid_launches + mr_fd + sp_fd + folder_fd + synth_fd,
         "max_abs_err": fade_err,
         "ms": fade["ms"],
         "plain_ms": fade["plain_ms"],
@@ -3780,8 +4028,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--sp-run"]:
         sp_step_run(sys.argv[2], int(sys.argv[3]), sys.argv[4:])
     elif sys.argv[1:2] == ["--rank-run"]:
-        sgd = sys.argv[2:3] == ["--sgd"]
-        rest = sys.argv[3:] if sgd else sys.argv[2:]
-        rank_run(rest[0], rest[1], rest[2:], sgd=sgd)
+        rank_run(sys.argv[2])
     else:
         main()

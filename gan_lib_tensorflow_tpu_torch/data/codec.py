@@ -148,6 +148,27 @@ def _png_chunks(buf: bytes, path: str):
         pos += 12 + n
 
 
+def png_text(path: str) -> dict:
+    """The text chunks of a PNG (``tEXt``, and ``iTXt`` stored uncompressed):
+    keyword -> value."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    if buf[:8] != PNG_SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file")
+    out = {}
+    for tag, body in _png_chunks(buf, path):
+        if tag == b"tEXt":
+            key, _, value = body.partition(b"\0")
+            out[key.decode("latin-1")] = value.decode("latin-1")
+        elif tag == b"iTXt":
+            key, _, rest = body.partition(b"\0")
+            if rest[:1] == b"\0":  # not compressed; skip method, language, translated key
+                _, _, rest = rest[2:].partition(b"\0")
+                _, _, value = rest.partition(b"\0")
+                out[key.decode("latin-1")] = value.decode("utf-8")
+    return out
+
+
 def _decode_png(buf: bytes, path: str) -> np.ndarray:
     header, palette, idat = None, np.zeros((256, 3), np.uint8), []
     for tag, body in _png_chunks(buf, path):

@@ -73,10 +73,14 @@ class KernelLibrary:
                 self._lib = self._build_and_load()
         return self._lib
 
-    def _build_and_load(self) -> ctypes.CDLL:
+    def path(self) -> str:
+        """The built library's path (which need not exist yet)."""
         with open(self.source, "rb") as f:
             digest = hashlib.sha256(f.read()).hexdigest()[:16]
-        so = os.path.join(BUILD_DIR, f"lib{self.name}_{digest}.so")
+        return os.path.join(BUILD_DIR, f"lib{self.name}_{digest}.so")
+
+    def _build_and_load(self) -> ctypes.CDLL:
+        so = self.path()
         if not os.path.exists(so):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"

@@ -18,4 +18,14 @@ counterpart's flags, defaults and JSON keys, on ``--device cuda`` unless
   without TensorFlow)
 - ``report_run``: a run directory's ``log.jsonl`` and ``step_*.pt``
   checkpoints -> the loss-curve-shape report
+- ``prepack_synthetic``: the ``rich`` synthetic images -> a packed store or
+  PGGAN pyramid, byte-equal to the reference tool's
+- ``plot_run``, ``plot_ladder``, ``plot_dose_response``: a run's losses and
+  FID, a PGGAN ladder's W-distance and GP, the SWD dose response, drawn in
+  numpy by ``figure`` (the text in PNG ``tEXt`` chunks, no font drawn)
+- ``doctor``: the card, its toolchain, both kernels, the host libraries and
+  CPU ranks, each probed in a subprocess with a timeout; one JSON report
+
+``verify_all.sh`` drives the port's CLIs end to end on the card after the
+doctor (``bash gan_lib_tensorflow_tpu_torch/tools/verify_all.sh``).
 """

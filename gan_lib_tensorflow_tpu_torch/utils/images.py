@@ -11,7 +11,7 @@ import math
 import os
 import struct
 import zlib
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -29,13 +29,24 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
 
-def png_bytes(image: np.ndarray) -> bytes:
-    """An 8-bit PNG of a uint8 ``[H, W, C]`` image, C in (1, 3, 4)."""
+def _text_chunk(key: str, value: str) -> bytes:
+    """``tEXt`` (Latin-1) when the value encodes so, else uncompressed ``iTXt`` (UTF-8)."""
+    try:
+        return _chunk(b"tEXt", key.encode("latin-1") + b"\0" + value.encode("latin-1"))
+    except UnicodeEncodeError:
+        return _chunk(b"iTXt", key.encode("latin-1") + b"\0\0\0\0\0" + value.encode("utf-8"))
+
+
+def png_bytes(image: np.ndarray, text: Optional[Dict[str, str]] = None) -> bytes:
+    """An 8-bit PNG of a uint8 ``[H, W, C]`` image, C in (1, 3, 4); ``text``
+    (keyword -> value, e.g. ``Title``, ``Description``) adds one text chunk
+    each before the image data."""
     h, w, c = image.shape
     rows = np.concatenate([np.zeros((h, 1), np.uint8),  # filter type 0 (None)
                            np.ascontiguousarray(image).reshape(h, w * c)], axis=1)
     header = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[c], 0, 0, 0)
-    return (_PNG_SIGNATURE + _chunk(b"IHDR", header)
+    notes = b"".join(_text_chunk(k, v) for k, v in (text or {}).items())
+    return (_PNG_SIGNATURE + _chunk(b"IHDR", header) + notes
             + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
 
 

@@ -2,7 +2,7 @@
 running means since the last flush, ``sec_per_step``, one printed line,
 ``log.jsonl`` under ``out_dir``, the history of every flushed value, and two
 options: ``curves`` (one ``{metric}.png`` line plot per metric, drawn in
-numpy and written by ``utils/images.py:png_bytes``, no matplotlib) and
+numpy by ``tools/figure.py`` and written by ``utils/images.py:png_bytes``, no matplotlib) and
 ``tensorboard`` (torch's ``SummaryWriter`` under ``out_dir/tb`` when it
 imports; otherwise a printed note, and logging goes on without it)."""
 
@@ -16,6 +16,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..tools import figure
 from .images import png_bytes
 
 CURVE_H, CURVE_W, CURVE_MARGIN = 300, 600, 20  # pixels, as the reference's 6x3 in figure
@@ -24,30 +25,17 @@ CURVE_H, CURVE_W, CURVE_MARGIN = 300, 600, 20  # pixels, as the reference's 6x3 
 def curve_image(points: List[Tuple[int, float]]) -> np.ndarray:
     """A line plot of ``(step, value)`` points: a uint8 ``[H, W, 3]`` white
     canvas, a grey frame, and the polyline in blue, scaled to fill the frame."""
-    img = np.full((CURVE_H, CURVE_W, 3), 255, np.uint8)
+    img = figure.canvas(CURVE_H, CURVE_W)
     m = CURVE_MARGIN
-    img[m, m:-m] = img[-m - 1, m:-m] = img[m:-m, m] = img[m:-m, -m - 1] = 160
     xs = np.array([p[0] for p in points], np.float64)
     ys = np.array([p[1] for p in points], np.float64)
     finite = np.isfinite(ys)
     if not finite.any():
+        figure.Panel(img, m, m, CURVE_H - m - 1, CURVE_W - m - 1, (0.0, 1.0), (0.0, 1.0))
         return img
-
-    def scale(v, lo, hi, n):
-        span = hi - lo
-        return (v - lo) / span * (n - 1) if span > 0 else np.full_like(v, (n - 1) / 2)
-
-    lo, hi = ys[finite].min(), ys[finite].max()
-    px = m + 1 + scale(xs, xs.min(), xs.max(), CURVE_W - 2 * m - 2)
-    py = CURVE_H - m - 2 - scale(np.where(finite, ys, lo), lo, hi, CURVE_H - 2 * m - 2)
-    for i in range(len(points) - 1):
-        if not (finite[i] and finite[i + 1]):
-            continue
-        n = int(max(abs(px[i + 1] - px[i]), abs(py[i + 1] - py[i]))) + 1
-        t = np.linspace(0.0, 1.0, n + 1)
-        cols = np.rint(px[i] + t * (px[i + 1] - px[i])).astype(int)
-        rows = np.rint(py[i] + t * (py[i + 1] - py[i])).astype(int)
-        img[rows, cols] = (31, 119, 180)
+    panel = figure.Panel(img, m, m, CURVE_H - m - 1, CURVE_W - m - 1,
+                         (xs.min(), xs.max()), (ys[finite].min(), ys[finite].max()))
+    panel.line(xs, ys, figure.TAB10["tab:blue"])
     return img
 
 
