@@ -12,8 +12,9 @@ final line):
   3. power-iteration kernel vs plain: the batched power-iteration kernel
      against its plain PyTorch version on the card (sigma, u', v and
      d sigma / dW; rtol 1e-4, float32 with TF32 off), at the CIFAR-D,
-     tests/test_pallas.py and ImageNet-128 wide shapes; two launches on the
-     same inputs must be bit-identical
+     tests/test_pallas.py, ImageNet-128 wide and ragged streamed shapes; two
+     launches on the same inputs must be bit-identical (the streamed shapes'
+     counters back at 0)
   4. fade-in kernel vs plain: ``fadein_blend`` against its plain version
      (rtol 1e-5, atol 1e-6) at the tests/test_pallas.py shape with alpha
      0, 0.37 and 1, at both PGGAN 1024^2 shapes in channels-last layout, and
@@ -76,11 +77,14 @@ final line):
      128x128 images with 1000-class labels written by the port's
      ``write_store``; ``train_sngan_imagenet.main --data <store>`` for 12
      steps across an epoch boundary (images/s, ms/step, peak memory, 6
-     power-iteration launches per step, which of D's 19 weights the kernel
-     streams); the kernel against its plain version at D's 19 weights; full
-     width float32 G and D on the card against the CPU at batch 2; the
-     19-weight launch's device time beside its bound and the empty-kernel
-     floor
+     power-iteration launches per step, which of D's 19 weights do not fit
+     in shared memory, so that all stream, and how they are dealt); the
+     kernel against its plain version at D's 19 weights; full width float32
+     G and D on the card against the CPU at batch 2; the 19-weight launch's
+     device time beside its bound, the plain version and the empty-kernel
+     floor, bit-identical across two launches, then with W cold in L2, and
+     split into launches of the weights too large for shared memory, the
+     others, the three largest and the largest alone
  12. (a) ACGAN CIFAR-10 at full width (batch 100, bf16, bce, aux 1.0)
      through ``train_acgan.main``: 24 steps timed (images/s, ms/step, peak
      memory), no launch of either kernel; a run faulted at step 6 and
@@ -345,6 +349,9 @@ PALLAS_SHAPES = [(1152, 128), (27, 64), (128, 1), (9, 256)]
 # the SNGAN-projection ImageNet-128 D's widest 3x3 convs (512->1024, 1024->1024):
 # slabs too large for shared memory, streamed from device memory
 IMAGENET_WIDE_SHAPES = [(4608, 1024), (9216, 1024)]
+# streamed weights with ragged edges: M not a multiple of 4 or of a tile, K
+# not a multiple of the threads, tiles of 4, 16, 32 and 64 columns
+RAGGED_STREAMED_SHAPES = [(9001, 1000), (4099, 700), (3001, 333), (13, 4096), (9216, 256)]
 # the real CIFAR-10 layout: five training pickles and one test pickle of
 # 10,000 images each, 3072 bytes per image
 CIFAR_FILES, CIFAR_PER_FILE = [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"], 10_000
@@ -397,7 +404,7 @@ DECODE_SECONDS = 0.5  # per format, for its decode rate
 # 256^2 files timed, and the ImageNet-128 run from their packed folder
 WEBP_FIXTURES = os.path.join("tests", "torch_fixtures", "webp")
 WEBP_RATE_FILES = ("lossy_256_q75.webp", "lossless_256.webp")
-WEBP_COPIES = 5  # of every fixture in each class: 340 files, one fused step's 320
+WEBP_COPIES = 5  # of every fixture in each class: 350 files, one fused step's 320
 WEBP_STEPS = 2
 # TF1 checkpoints (phase 19): the committed TensorFlow-written bundles and
 # their manifest, and the steps of the SNGAN run resumed from an import
@@ -1058,8 +1065,9 @@ def imagenet128(card: str, tmp: str) -> None:
     d = state.d
     dims = [(m.weight[0].numel(), m.weight.shape[0]) for m in d.sn_layers]
     check(len(dims) == 19, f"{len(dims)} SN weights in the ImageNet-128 D")
-    plan = pi.plan_power_iteration(dims)  # what D's table was built from
-    streamed = sorted({c.weight for c in plan.ctas if c.stream})
+    max_ctas = pi.max_ctas(torch.device("cuda"))
+    plan = pi.plan_power_iteration(dims, max_ctas)  # what D's table was built from
+    streamed = [i for i, (m, k) in enumerate(dims) if not pi.slab_fits(m, k)]
     names = [n for n, m in d.named_modules() if m in d.sn_layers]
     sps = last_sec_per_step(run)
     print(f"SNGAN-projection ImageNet-128, full width, 1000 classes, batch {BATCH}, n_critic "
@@ -1068,9 +1076,19 @@ def imagenet128(card: str, tmp: str) -> None:
           f"{IMAGENET_STEPS - LOG_EVERY + 1}-{IMAGENET_STEPS})  peak memory "
           f"{peak / 2**20:.0f} MiB  kernel launches {launches} in {IMAGENET_STEPS} steps; "
           f"{run_s:.1f} s for the run with its build  [{card}]")
-    print(f"power-iteration plan of D's 19 weights: {len(plan.ctas)} CTAs, "
-          f"{plan.smem_bytes} B of shared memory per CTA; streamed from device memory: "
-          + ", ".join(f"{names[i]} {list(dims[i])}" for i in streamed))
+    stream_ctas = [c for c in plan.ctas if c.kind == pi.STREAM]
+    check(len(stream_ctas) == len(plan.ctas) == max_ctas and plan.items,
+          f"the ImageNet-128 D's plan: {len(stream_ctas)} streaming CTAs of {len(plan.ctas)}")
+    per_cta = [sum(4 * dims[it.weight][1] * it.width for it in plan.items[c.col0:c.col0 + c.width])
+               for c in stream_ctas]
+    parts = {it.weight: it.parts for it in plan.items}
+    print(f"power-iteration plan of D's 19 weights: the slabs of "
+          + ", ".join(f"{names[i]} {list(dims[i])}" for i in streamed)
+          + f" do not fit in shared memory, so all 19 stream: {len(plan.ctas)} CTAs (the card "
+          f"holds {max_ctas} at once), {plan.smem_bytes} B of shared memory and "
+          f"{plan.slots} chunk slots per CTA, {len(plan.items)} items, W bytes per CTA "
+          f"{min(per_cta)}-{max(per_cta)} ({max(per_cta) / min(per_cta):.3f} max/min); parts "
+          + ", ".join(f"{names[i]} {parts[i]}" for i in streamed))
 
     # the kernel at D's 19 weights against its plain version
     err = compare_kernel(pi, torch, dims, 4)
@@ -1105,9 +1123,21 @@ def imagenet128(card: str, tmp: str) -> None:
     ws = [m.weight.detach() for m in d.sn_layers]
     us = [m.u.detach().clone() for m in d.sn_layers]
     table = pi.PowerIterationTable()
+    first, second = pi.launch(ws, us, table=table), pi.launch(ws, us, table=table)
+    check(all(torch.equal(x, y) for x, y in zip(first, second))
+          and table.counters.tolist() == [0] * len(ws),
+          "two launches at the ImageNet-128 D's weights differ, or a counter is left set")
+    del first, second
     t = timed_in_turns({"kernel": lambda: pi.launch(ws, us, table=table),
                         "plain": lambda: pi.plain_power_iteration(ws, us)}, 50)
     floor_ms = device_ms(lambda: pi.launch_empty(table), 200)
+    # W cold in L2, as after the step's convolutions: 256 MB written between
+    # launches (five times the 50 MB L2), that write's own time taken away
+    flush = torch.empty(64 << 20, device="cuda")
+    cold = timed_in_turns({"kernel": lambda: (flush.add_(1.0), pi.launch(ws, us, table=table)),
+                           "flush": lambda: flush.add_(1.0)}, 20)
+    cold_ms = cold["kernel"] - cold["flush"]
+    del flush
     ms_, ks = [m for m, _ in dims], [k for _, k in dims]
     n_bytes = 4 * (sum(m * k for m, k in dims) + sum(ks) + len(ws) + sum(ks) + sum(ms_))
     n_flops = sum(4 * m * k for m, k in dims)
@@ -1117,20 +1147,27 @@ def imagenet128(card: str, tmp: str) -> None:
           f"{1e3 * floor_ms:.2f} us, bound {1e3 * bound_ms:.2f} us (bytes: {n_bytes} B at "
           f"3.35 TB/s; {n_flops} flop), {n_bytes / t['kernel'] / 1e9:.3f} TB/s, "
           f"{bound_ms / t['kernel']:.3f} of the bound; {N_CRITIC + 1} launches per step "
-          f"{(N_CRITIC + 1) * 1e3 * t['kernel']:.1f} us of {1e3 * sps:.2f} ms  [{card}]")
-    # where the launch's time goes: the streamed weights, the others, and the
-    # largest weight alone (one cluster of 8 CTAs), each as its own launch
-    largest = max(range(len(dims)), key=lambda i: dims[i][0] * dims[i][1])
-    for label, sel in (("streamed", streamed),
-                       ("slab in shared memory", [i for i in range(len(dims)) if i not in streamed]),
-                       (f"largest alone ({names[largest]})", [largest])):
+          f"{(N_CRITIC + 1) * 1e3 * t['kernel']:.1f} us of {1e3 * sps:.2f} ms; two launches "
+          f"bit-identical  [{card}]")
+    print(f"  with W cold in L2 (256 MB written between launches, its {1e3 * cold['flush']:.2f} "
+          f"us taken away): {1e3 * cold_ms:.2f} us, {n_bytes / cold_ms / 1e9:.3f} TB/s, "
+          f"{bound_ms / cold_ms:.3f} of the bound  [{card}]")
+    # where the launch's time goes: the 9 weights that need streaming, the
+    # other 10 (which alone take path 1), the three largest (the 37.75 MB
+    # convs) and the first of them alone, each as its own launch
+    largest = sorted(range(len(dims)), key=lambda i: -dims[i][0] * dims[i][1])[:3]
+    for label, sel in (("too large for shared memory", streamed),
+                       ("slabs in shared memory", [i for i in range(len(dims)) if i not in streamed]),
+                       ("three largest (" + ", ".join(names[i] for i in largest) + ")", largest),
+                       (f"largest alone ({names[largest[0]]})", largest[:1])):
         if not sel:
             continue
         sub_w, sub_u, sub_t = [ws[i] for i in sel], [us[i] for i in sel], pi.PowerIterationTable()
         sub_ms = device_ms(lambda: pi.launch(sub_w, sub_u, table=sub_t), 50)
         w_bytes = 4 * sum(dims[i][0] * dims[i][1] for i in sel)
         print(f"  {label}: {len(sel)} weights, {w_bytes} B of W, {1e3 * sub_ms:.2f} us, "
-              f"{w_bytes / sub_ms / 1e9:.3f} TB/s of W read once  [{card}]")
+              f"{w_bytes / sub_ms / 1e9:.3f} TB/s of W read once, bound "
+              f"{1e6 * w_bytes / PEAK_BYTES_PER_S:.2f} us  [{card}]")
 
 
 def acgan_and_conditional_sngan(card: str, tmp: str) -> int:
@@ -3645,16 +3682,21 @@ def main() -> None:
     before = pi.launches
     err = max(compare_kernel(pi, torch, CIFAR_D_SHAPES, 0),
               compare_kernel(pi, torch, PALLAS_SHAPES, 1),
-              compare_kernel(pi, torch, IMAGENET_WIDE_SHAPES, 2))
+              compare_kernel(pi, torch, IMAGENET_WIDE_SHAPES, 2),
+              compare_kernel(pi, torch, RAGGED_STREAMED_SHAPES, 5))
     check(pi.launches > before, "launch counter did not advance")
     g = torch.Generator(device="cuda").manual_seed(3)
-    ws = [torch.randn(k, m, device="cuda", generator=g) for m, k in CIFAR_D_SHAPES]
-    us = [torch.randn(1, k, device="cuda", generator=g) for _, k in CIFAR_D_SHAPES]
-    first, second = pi.launch(ws, us), pi.launch(ws, us)
-    check(all(torch.equal(x, y) for x, y in zip(first, second)),
-          "two launches on the same inputs differ")
-    print(f"batched_power_iteration: sigma/u'/v/grad agree at the CIFAR-D, test_pallas.py "
-          f"and ImageNet-128 wide shapes, max abs err {err:.3e}; two launches bit-identical")
+    for shapes in (CIFAR_D_SHAPES, IMAGENET_WIDE_SHAPES, RAGGED_STREAMED_SHAPES):
+        ws = [torch.randn(k, m, device="cuda", generator=g) for m, k in shapes]
+        us = [torch.randn(1, k, device="cuda", generator=g) for _, k in shapes]
+        table = pi.PowerIterationTable()
+        first, second = pi.launch(ws, us, table=table), pi.launch(ws, us, table=table)
+        check(all(torch.equal(x, y) for x, y in zip(first, second)),
+              f"two launches on the same inputs differ at {shapes}")
+        check(table.counters.tolist() == [0] * len(ws), "a streamed weight's counter is left set")
+    print(f"batched_power_iteration: sigma/u'/v/grad agree at the CIFAR-D, test_pallas.py, "
+          f"ImageNet-128 wide and ragged streamed shapes, max abs err {err:.3e}; two launches "
+          f"bit-identical at the CIFAR-D, ImageNet-128 wide and ragged streamed shapes")
 
     phase("4 fade-in kernel vs plain")
     fade_err = compare_fadein(fd, torch)

@@ -83,9 +83,12 @@ def parse_args(argv=None):
     p.add_argument("--sp-shards", type=int, default=1,
                    help="spatial partitioning: shard the image height over this "
                         "many ranks (the 'sp' axis; the ranks split as data = "
-                        "world / sp, sp). A power of two with --final-resolution "
-                        ">= 4 * sp: a level of H >= 4 * sp rows holds H / sp rows "
-                        "per rank, and the smaller ones stay whole")
+                        "world / sp, sp). A power of two: a level of H >= 4 * sp "
+                        "rows holds H / sp rows per rank, and the smaller ones "
+                        "stay whole on every rank (a ladder that ends below "
+                        "4 * sp shards no level). The reference's GSPMD mesh "
+                        "takes any sp that divides the device count, but its "
+                        "batches then need 4 (the first level) divisible by sp")
     p.add_argument("--batch-by-res", type=str, default="",
                    help="override entries of the Karras per-resolution batch "
                         "schedule, e.g. '512:16,1024:8'; the generic "
@@ -98,12 +101,11 @@ def parse_args(argv=None):
         raise SystemExit("--tp-shards is not supported by the PGGAN ladder; "
                          "use data parallelism (torchrun) instead")
     sp = args.sp_shards
-    if sp < 1 or sp & (sp - 1) or (sp > 1 and args.final_resolution < 4 * sp):
+    if sp < 1 or sp & (sp - 1):
         # a sharded level's rows must split into shards of an even number of
         # rows, each starting on an even row (the pool, the fused downscale
         # and the space-to-depth grid read pixel pairs)
-        p.error(f"--sp-shards {sp}: a power of two with --final-resolution "
-                f"{args.final_resolution} >= 4 * sp is needed, so that every sharded "
+        p.error(f"--sp-shards {sp}: a power of two is needed, so that every sharded "
                 "level splits into even shards of 4 rows or more")
     return args
 

@@ -32,12 +32,11 @@
 // (gl_error_string names the reason), as libwebp refuses them: the file's
 // structure is checked as libwebp's demuxer checks it (Reader, parse).
 // Where a corrupt stream still decodes, the decoder follows what libwebp
-// does on a 64-bit x86 host (the boolean decoder's 7-byte refill, 16-bit
-// sums in the inverse DCT of a block of more than three coefficients, the
-// image chunk read with its padding byte), so that such a file decodes to
-// Pillow's garbage too; for any stream an encoder writes these are the
-// RFC's results. A VP8 stream whose Y2 block overflows 16 bits (only a
-// corrupt one does) may still decode differently from libwebp's.
+// does on a 64-bit x86 host (the boolean decoder's 7-byte refill, its
+// branch-free read of a coefficient's sign, 16-bit sums in the inverse DCT
+// of a block of more than three coefficients, the image chunk read with its
+// padding byte), so that such a file decodes to Pillow's garbage too; for
+// any stream an encoder writes these are the RFC's results.
 
 #include <algorithm>
 #include <cstdint>
@@ -616,6 +615,25 @@ class BoolDecoder {
     return bit(0x80) ? -v : v;
   }
   bool at_end() const { return eof_; }
+  // +v or -v by one bit of probability 1/2, as libwebp's VP8GetSigned reads
+  // a coefficient's sign: the bit is the sign of the 32-bit difference
+  // split - value, not the comparison value > split. The two agree while
+  // value <= range, as in any stream an encoder writes; a corrupt stream
+  // can push value past split by more than 2^31 (a partition whose first
+  // byte is over the range leaves every later bit 1, and the coefficients
+  // grow until a Y2 block overflows 16 bits), and then the bit is 0 here
+  // and 1 in bit(0x80).
+  int sign(int v) {
+    if (bits_ < 0) load();
+    const int pos = bits_;
+    const uint32_t split = range_ >> 1;
+    const uint32_t value = uint32_t(value_ >> pos);
+    const int32_t mask = int32_t(split - value) >> 31;  // -1: negative
+    bits_ -= 1;
+    range_ = (range_ + uint32_t(mask)) | 1;
+    value_ -= uint64_t((split + 1) & uint32_t(mask)) << pos;
+    return (v ^ mask) - mask;
+  }
 
  private:
   void load() {
@@ -1721,7 +1739,7 @@ class Lossy {
         v = large_value(br, p);
         p = probs_[type][kBands[n + 1]][2];
       }
-      out[kZigzag[n]] = static_cast<int16_t>((br.bit(0x80) ? -v : v) * dq[n > 0]);
+      out[kZigzag[n]] = static_cast<int16_t>(br.sign(v) * dq[n > 0]);
     }
     return 16;
   }

@@ -4,7 +4,11 @@ The truncated He normal of the SNGAN path, and PGGAN's equalized learning
 rate: a unit-normal init with the He multiplier ``he_scale`` applied at
 runtime (Karras et al. 2018, section 4.1). Init matches the JAX package in
 distribution, not in bits: the parity tests carry weights across with
-``convert.py``.
+``convert.py``. The port's models and CLIs draw every init here, from
+torch generators. One place draws the reference's own bits instead: the
+TF1 importer's ``--allow-partial`` fills a leaf no checkpoint variable
+matches with what the reference tool's ``PRNGKey(0)`` / ``PRNGKey(1)``
+init gives it (``tools/flax_init.py``).
 """
 
 from __future__ import annotations

@@ -43,9 +43,12 @@ reference's do not take up its tool's checkpoint: ``train_sngan`` and
 per-phase directories (each refuses or ignores it as the reference's
 does).
 
-Under ``--allow-partial`` an unmatched leaf keeps the port's seed-0 init,
-which is not the reference's ``PRNGKey(0)`` draw: only matched leaves
-equal the reference tool's output.
+Under ``--allow-partial`` an unmatched leaf takes the reference tool's
+init: G's ``g_init(PRNGKey(0))`` and D's ``d_init(PRNGKey(1))`` draw
+(``:368-369``), computed without JAX by ``tools/flax_init.py``; its uniform
+draws are bit-equal to JAX's, its normal and truncated-normal ones within 3
+ulp (``log1p``). Only this tool uses that init; the port's models and
+CLIs keep their own torch init (``ops/initializers.py``).
 
 Example:
   python -m gan_lib_tensorflow_tpu_torch.tools.import_tf1_checkpoint --model sngan \\
@@ -69,6 +72,7 @@ import torch
 from ..convert import flax_view, load_flax_view
 from ..models import acgan, pggan, pix2pix, sngan
 from ..train import CheckpointManager, create_state
+from .flax_init import reference_init
 from .tf1_bundle import read_tf_checkpoint
 
 _ROLE_PATTERNS = [
@@ -171,6 +175,16 @@ def match(tf_vars: Dict[str, np.ndarray], leaves, explicit: Dict[str, str],
     return assignments, report
 
 
+def unmatched_init(module: torch.nn.Module, assignments, seed: int, equalized: bool
+                   ) -> Dict[Tuple[str, ...], np.ndarray]:
+    """The reference tool's init (``PRNGKey(seed)``) of every flax leaf of
+    ``module`` that ``assignments`` leaves out."""
+    view = flax_view(module)
+    shapes = {keys: arr.shape for _, keys, arr, _ in view}
+    return reference_init(list(shapes), shapes, seed, equalized,
+                          only=[k for k in shapes if k not in assignments])
+
+
 def nchw_boundary_fixups(g_vars: Dict[Tuple[str, ...], np.ndarray], model: str
                          ) -> Dict[Tuple[str, ...], np.ndarray]:
     """Permute the G input dense's output columns (kernel and bias) from
@@ -237,8 +251,8 @@ def parse_args(argv=None):
                    help="apply NCHW->NHWC dense-boundary permutation "
                         "(igul222-lineage checkpoints)")
     p.add_argument("--allow-partial", action="store_true",
-                   help="keep fresh init for unmatched target leaves (the port's "
-                        "seed-0 init, not the reference's PRNGKey(0) draw)")
+                   help="give unmatched target leaves a fresh init: the reference "
+                        "tool's (G from PRNGKey(0), D from PRNGKey(1))")
     p.add_argument("--report-only", action="store_true",
                    help="write the mapping report and exit without importing")
     p.add_argument("--device", default="cuda",
@@ -299,20 +313,20 @@ def main(argv=None) -> int:
             f"{report_path}); pin them with --map or pass --allow-partial "
             f"to keep their fresh initialization")
 
-    # the seed-0 init (kept by unmatched leaves), then the imported values
     # each matched value cast to its leaf's float32 as the reference casts it
     # (``astype``: a complex value loses its imaginary part with numpy's
-    # warning, a string that is no number raises numpy's ValueError)
-    g_assign = {k: v.astype(np.float32) for k, v in g_assign.items()}
-    d_assign = {k: v.astype(np.float32) for k, v in d_assign.items()}
+    # warning, a string that is no number raises numpy's ValueError); every
+    # other leaf takes the reference's init of its network
     state = create_state(g, d, lr=2e-4, beta1=0.0, beta2=0.9, ema_decay=EMA_DECAY,
                          seed=0, device=args.device)
-    g_vars = {keys: arr for _, keys, arr, _ in flax_view(state.g)}
-    g_vars.update(g_assign)
+    g_vars = unmatched_init(state.g, g_assign, seed=0, equalized=args.model == "pggan")
+    d_vars = unmatched_init(state.d, d_assign, seed=1, equalized=args.model == "pggan")
+    g_vars.update({k: v.astype(np.float32) for k, v in g_assign.items()})
+    d_vars.update({k: v.astype(np.float32) for k, v in d_assign.items()})
     if args.nchw_boundary:
         g_vars = nchw_boundary_fixups(g_vars, args.model)
     load_flax_view(state.g, g_vars)
-    load_flax_view(state.d, d_assign)
+    load_flax_view(state.d, d_vars)
     # imported weights ARE the trained model: seed EMA with them; Adam's
     # slots start at zero, as optax's init
     state.ema_params = {n: p.detach().clone() for n, p in state.g.named_parameters()}

@@ -47,6 +47,30 @@ as its bundle writer does; a compressed block is refused by name.
 (``tools/import_tf1_checkpoint.py:56-58``) before any tensor is decoded,
 so a TF2 object graph (``_CHECKPOINTABLE_OBJECT_GRAPH``, a string) is
 listed and dropped, never parsed.
+
+Listing order. ``variables`` is in the file's order (a bundle's key order;
+a V1 checkpoint's files, then each meta's). ``listing`` is the order of
+``tf.train.load_checkpoint(path).get_variable_to_shape_map()``, which the
+reference importer reads: TensorFlow's ``CheckpointReader`` fills a
+``std::unordered_map<std::string, TensorShape>`` and the Python dict
+follows its iteration. ``hash_map_order`` computes that order from the
+names alone, as libstdc++ (the C++ library of TensorFlow's Linux wheels)
+lays the map out: ``std::hash<std::string>`` is ``_Hash_bytes`` (64-bit
+MurmurHash2, seed ``0xc70f6907``), the bucket counts are those of
+``_Prime_rehash_policy`` for a map grown one insert at a time, a key goes
+to the front of its bucket or, in an empty bucket, to the front of the
+list, and a rehash relinks the list in its order the same way. A V2 bundle
+inserts its names in key order (``BuildV2VarMaps``); a V1 checkpoint
+inserts them into ``TensorSliceReader``'s own hash map file by file, each
+in its meta's order, then copies that map into a new one in its iteration
+order (``GetVariableToShapeMap``). A V2 order is fixed by the names alone.
+A V1 order of several files also depends on the order in which TensorFlow
+met the files: ``GetMatchingPaths`` keeps their directory's listing order
+(``readdir``'s, which the file system sets, and not sorted), so it is read
+from ``os.listdir`` here; a copy of the files into another directory may
+list them otherwise, and TensorFlow's order changes with it. A TensorFlow
+built against another C++ library (libc++, MSVC's) hashes otherwise, and
+there this order is not its.
 """
 
 from __future__ import annotations
@@ -56,7 +80,7 @@ import functools
 import glob
 import os
 import re
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterable, Iterator, List, Tuple
 
 import numpy as np
 
@@ -328,6 +352,84 @@ def _signed_num_increasing(v: int) -> bytes:
     return bytes(buf)
 
 
+_M64 = (1 << 64) - 1
+_MURMUR_MUL = (0xC6A4A793 << 32) + 0x5BD1E995
+# (size at which a map grown one insert at a time rehashes, its new bucket
+# count): libstdc++'s _Prime_rehash_policy at max_load_factor 1, from 1
+# bucket (the first insert allocates 13) to past 2**31 names
+_REHASHES = ((1, 13), (14, 29), (30, 59), (60, 127), (128, 257), (258, 541),
+             (542, 1109), (1110, 2357), (2358, 5087), (5088, 10273), (10274, 20753),
+             (20754, 42043), (42044, 85229), (85230, 172933), (172934, 351061),
+             (351062, 712697), (712698, 1447153), (1447154, 2938679),
+             (2938680, 5967347), (5967348, 12117689), (12117690, 24607243),
+             (24607244, 49969847), (49969848, 101473717), (101473718, 206062531),
+             (206062532, 418451333), (418451334, 849749479), (849749480, 1725587117),
+             (1725587118, 3504151727))
+
+
+def _shift_mix(v: int) -> int:
+    return v ^ (v >> 47)
+
+
+def _std_string_hash(data: bytes) -> int:
+    """libstdc++'s ``std::hash<std::string>`` on a 64-bit host:
+    ``_Hash_bytes(data, len, 0xc70f6907)``."""
+    n = len(data)
+    h = 0xC70F6907 ^ (n * _MURMUR_MUL & _M64)
+    whole = n & ~7
+    for i in range(0, whole, 8):
+        word = int.from_bytes(data[i:i + 8], "little")
+        h = (h ^ (_shift_mix(word * _MURMUR_MUL & _M64) * _MURMUR_MUL & _M64)) * _MURMUR_MUL & _M64
+    if n & 7:
+        h = (h ^ int.from_bytes(data[whole:], "little")) * _MURMUR_MUL & _M64
+    return _shift_mix(_shift_mix(h) * _MURMUR_MUL & _M64)
+
+
+def hash_map_order(names: Iterable[str]) -> List[str]:
+    """The iteration order of a libstdc++ ``std::unordered_map<std::string,
+    T>`` after ``names`` were inserted one at a time in this order (a
+    repeated name is not inserted again)."""
+    # a singly linked list: nxt[None] is its first node, "" never ends it
+    # (an end is marked by END); before[b] is the node before bucket b's first
+    end = object()
+    nxt: Dict[object, object] = {None: end}
+    before: Dict[int, object] = {}
+    codes: Dict[str, int] = {}
+    n_buckets = 1
+
+    def link(node, b: int, first_bucket: int) -> int:
+        """Put node at the front of bucket b (an empty one: of the list)."""
+        if b in before:
+            prev = before[b]
+            nxt[node], nxt[prev] = nxt[prev], node
+            return first_bucket
+        nxt[node], nxt[None], before[b] = nxt[None], node, None
+        if nxt[node] is not end:
+            before[first_bucket] = node
+        return b
+
+    for name in names:
+        if name in codes:
+            continue
+        grown = next(b for at, b in reversed(_REHASHES) if len(codes) + 1 >= at)
+        if grown != n_buckets:  # rehash: relink the list in its order
+            n_buckets, node, before = grown, nxt[None], {}
+            nxt[None], first_bucket = end, 0
+            while node is not end:
+                after = nxt[node]
+                first_bucket = link(node, codes[node] % n_buckets, first_bucket)
+                node = after
+        codes[name] = _std_string_hash(name.encode())
+        first = nxt[None]
+        link(name, codes[name] % n_buckets,
+             codes[first] % n_buckets if first is not end else 0)
+    out, node = [], nxt[None]
+    while node is not end:
+        out.append(node)
+        node = nxt[node]
+    return out
+
+
 def slice_key(name: str, extents: List[Tuple[int, int]]) -> bytes:
     """``EncodeTensorNameSlice``: the key a partitioned variable's slice is
     stored under."""
@@ -495,10 +597,10 @@ def _assemble(name: str, shape: Tuple[int, ...],
 
 class Bundle:
     """An open tensor bundle. ``variables`` maps each listed tensor to
-    ``(dtype name, shape)`` in the bundle's key order (TensorFlow's
-    reader iterates the same order; ``tf.train.load_checkpoint``'s Python
-    dict comes from a hash map and is in another). ``read(name)`` returns a
-    numpy array (bfloat16 widened exactly to float32)."""
+    ``(dtype name, shape)`` in the bundle's key order; ``listing`` is
+    ``tf.train.load_checkpoint``'s order (the module's note).
+    ``read(name)`` returns a numpy array (bfloat16 widened exactly to
+    float32)."""
 
     def __init__(self, prefix: str):
         self.prefix = resolve_prefix(prefix)
@@ -546,6 +648,7 @@ class Bundle:
                 self._entries[key.decode()] = Entry(value)
         self.variables = {name: (dtype_name(e.dtype), e.shape)
                           for name, e in self._entries.items()}
+        self.listing = hash_map_order(self.variables)
         self._shards: Dict[int, np.memmap] = {}
 
     def _shard(self, shard_id: int) -> np.ndarray:
@@ -652,8 +755,8 @@ class TableCheckpoint:
     lists each tensor's name, shape, dtype and saved slices; each slice is
     a ``SavedTensorSlices`` under ``EncodeTensorNameSlice(name, slice)``
     whose ``data`` holds its values in the ``TensorProto`` field of the
-    dtype. ``variables`` and ``read`` are ``Bundle``'s; the order is the
-    files' and, within a file, the meta's."""
+    dtype. ``variables``, ``listing`` and ``read`` are ``Bundle``'s; the
+    order of ``variables`` is the files' and, within a file, the meta's."""
 
     def __init__(self, pattern: str):
         self.prefix = resolve_prefix(pattern)
@@ -663,6 +766,7 @@ class TableCheckpoint:
         self.num_shards = len(files)
         self._tensors: Dict[str, Tuple[int, Tuple[int, ...]]] = {}
         self._slices: Dict[str, List[Tuple[List[Tuple[int, int]], bytes]]] = {}
+        metas: Dict[str, List[str]] = {}  # each file's tensors, in its meta's order
         for path in files:
             with open(path, "rb") as f:
                 table = f.read()
@@ -675,11 +779,17 @@ class TableCheckpoint:
                                       "(not a V1 checkpoint)")
                 for f, _, tensor in _fields(meta):
                     if f == 1:
-                        self._add(tensor, entries, path)
+                        metas.setdefault(path, []).append(self._add(tensor, entries, path))
         self.variables = {name: (dtype_name(dt), shape)
                           for name, (dt, shape) in self._tensors.items()}
+        # TensorSliceReader registers the files in GetMatchingPaths' order,
+        # which is their directory's listing order (readdir's), not sorted
+        listed = {name: i for i, name in enumerate(os.listdir(os.path.dirname(self.prefix) or "."))}
+        registered = sorted(files, key=lambda p: listed.get(os.path.basename(p), len(listed)))
+        self.listing = hash_map_order(hash_map_order(
+            name for path in registered for name in metas.get(path, [])))
 
-    def _add(self, tensor: bytes, entries: Dict[bytes, bytes], path: str) -> None:
+    def _add(self, tensor: bytes, entries: Dict[bytes, bytes], path: str) -> str:
         name, shape, dtype, extents = "", (), 1, []
         for field, _, value in _fields(tensor):
             if field == 1:
@@ -699,6 +809,7 @@ class TableCheckpoint:
             if saved is None:
                 raise BundleError(f"{path}: tensor {name!r}: slice {ext} is missing")
             self._slices.setdefault(name, []).append((ext, saved))
+        return name
 
     def read(self, name: str) -> np.ndarray:
         """The tensor as ``TensorSliceReader::GetTensor`` returns it, which
@@ -755,15 +866,16 @@ def open_bundle(path: str):
 
 
 def read_tf_checkpoint(path: str) -> Dict[str, np.ndarray]:
-    """``{name: array}`` of every variable ``DROP`` does not match, in the
-    bundle's order; the dropped ones are never decoded (the reference
-    importer's ``read_tf_checkpoint``)."""
+    """``{name: array}`` of every variable ``DROP`` does not match, in
+    ``tf.train.load_checkpoint``'s order (``listing``); the dropped ones are
+    never decoded (the reference importer's ``read_tf_checkpoint``)."""
     with open_bundle(path) as bundle:
-        out = {name: bundle.read(name) for name in bundle.variables if not DROP.search(name)}
+        out = {name: bundle.read(name) for name in bundle.listing if not DROP.search(name)}
     if not out:
         raise SystemExit(f"no model variables found in checkpoint {path!r}")
     return out
 
 
-__all__ = ["Bundle", "BundleError", "DROP", "TableCheckpoint", "crc32c", "mask_crc",
-           "open_bundle", "read_tf_checkpoint", "resolve_prefix", "slice_key", "unmask_crc"]
+__all__ = ["Bundle", "BundleError", "DROP", "TableCheckpoint", "crc32c", "hash_map_order",
+           "mask_crc", "open_bundle", "read_tf_checkpoint", "resolve_prefix", "slice_key",
+           "unmask_crc"]

@@ -40,6 +40,9 @@ IMAGENET_D_SHAPES = ([(27, 64), (576, 64), (3, 64),
 # ragged splits: M not a multiple of 4 (4-byte copies), a last rank narrower
 # than the others, K larger than a CTA's threads
 RAGGED_SHAPES = [(1153, 130), (64, 3000), (2000, 40)]
+# ragged streamed weights: M not a multiple of 4 (4-byte copies) or of a tile,
+# K not a multiple of the threads, tiles of 4, 16, 32 and 64 columns
+RAGGED_STREAMED = [(9001, 1000), (4099, 700), (3001, 333), (13, 4096), (9216, 256)]
 
 
 @pytest.fixture
@@ -57,9 +60,9 @@ def _inputs(shapes, dev, seed=0):
 
 
 @pytest.mark.parametrize("shapes", [CIFAR_D_SHAPES, PALLAS_SHAPES, IMAGENET_WIDE_SHAPES,
-                                    RAGGED_SHAPES, IMAGENET_D_SHAPES],
+                                    RAGGED_SHAPES, IMAGENET_D_SHAPES, RAGGED_STREAMED],
                          ids=["cifar_d_shapes", "pallas_shapes", "imagenet_wide_shapes",
-                              "ragged_shapes", "imagenet_d_shapes"])
+                              "ragged_shapes", "imagenet_d_shapes", "ragged_streamed"])
 def test_kernel_matches_plain(card, shapes):
     ws, us = _inputs(shapes, card)
     before = pi.launches
@@ -71,16 +74,41 @@ def test_kernel_matches_plain(card, shapes):
     torch.testing.assert_close(v_out, torch.cat(v_ref), rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("shapes", [CIFAR_D_SHAPES, IMAGENET_WIDE_SHAPES, IMAGENET_D_SHAPES],
-                         ids=["cifar_d_shapes", "imagenet_wide_shapes", "imagenet_d_shapes"])
+@pytest.mark.parametrize("shapes", [CIFAR_D_SHAPES, IMAGENET_WIDE_SHAPES, IMAGENET_D_SHAPES,
+                                    RAGGED_STREAMED],
+                         ids=["cifar_d_shapes", "imagenet_wide_shapes", "imagenet_d_shapes",
+                              "ragged_streamed"])
 def test_two_launches_are_bit_identical(card, shapes):
-    """No atomics and a fixed order of every sum: the same inputs give the
-    same sigma, u' and v, bit for bit."""
+    """No floating-point atomics and a fixed order of every sum (a streamed
+    weight's parts added in part order, whichever CTA finishes last): the
+    same inputs give the same sigma, u' and v, bit for bit."""
     ws, us = _inputs(shapes, card, seed=2)
     table = pi.PowerIterationTable()
     first = pi.launch(ws, us, table=table)
     second = pi.launch(ws, us, table=table)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_streamed_launches_replay_in_a_graph_and_leave_the_counters_zero(card):
+    """The last part of each streamed weight resets its counter, so launches
+    captured in a CUDA graph and replayed give the eager launch's result."""
+    ws, us = _inputs(IMAGENET_WIDE_SHAPES + RAGGED_STREAMED[:2], card, seed=5)
+    table = pi.PowerIterationTable()
+    eager = pi.launch(ws, us, table=table)
+    assert table.plan.items and table.counters.tolist() == [0] * len(ws)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pi.launch(ws, us, table=table)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pi.launch(ws, us, table=table)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, eager))
+    assert table.counters.tolist() == [0] * len(ws)
 
 
 def test_refused_launch_raises(card):

@@ -164,17 +164,19 @@ def test_one_process_without_a_launcher_has_no_mesh(monkeypatch):
 def test_pggan_refuses_tp_and_sp_shards(monkeypatch, capsys):
     """PGGAN refuses --tp-shards (as the reference); --sp-shards runs when
     its shards of every sharded level hold an even number of rows, 4 or
-    more (a power of two up to final/4), and must divide the world size."""
+    more (a power of two; a ladder that ends below 4 * sp shards no level),
+    and must divide the world size."""
     from gan_lib_tensorflow_tpu_torch.cli import train_pggan
     with pytest.raises(SystemExit, match="--tp-shards is not supported"):
         train_pggan.parse_args(["--device", "cpu", "--tp-shards", "2"])
-    for bad in (["--sp-shards", "3"], ["--sp-shards", "0"],
-                ["--sp-shards", "4", "--final-resolution", "8"]):
+    for bad in (["--sp-shards", "3"], ["--sp-shards", "0"], ["--sp-shards", "6"]):
         with pytest.raises(SystemExit) as e:
             train_pggan.parse_args(["--device", "cpu", *bad])
         assert e.value.code == 2
         assert f"--sp-shards {bad[1]}" in capsys.readouterr().err
     assert train_pggan.parse_args(["--device", "cpu", "--sp-shards", "1"]).sp_shards == 1
+    assert train_pggan.parse_args(["--device", "cpu", "--sp-shards", "4",
+                                   "--final-resolution", "8"]).sp_shards == 4
     args = train_pggan.parse_args(["--device", "cpu", "--sp-shards", "2",
                                    "--final-resolution", "8"])
     assert args.sp_shards == 2

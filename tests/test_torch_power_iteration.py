@@ -111,8 +111,8 @@ def test_kernel_launch_rejects_cpu_and_bad_inputs():
 
 def test_table_rows_are_ragged_offsets():
     """The kernel's table: one row per CTA, (ptr, ptr, M, K, v_off, u_off,
-    col0, width, kind, weight, stream), offsets ragged with no padding, idle
-    CTAs all zero; built once while pointers and shapes stay the same."""
+    col0, width, kind, weight), offsets ragged with no padding, idle CTAs
+    all zero; built once while pointers and shapes stay the same."""
     _, _, w_t, u_t = _inputs(CIFAR_D_SHAPES)
     t = pi.PowerIterationTable().get(w_t, u_t)
     rows = t.table.tolist()
@@ -126,9 +126,10 @@ def test_table_rows_are_ragged_offsets():
         i = cta.weight
         assert row[0] == w_t[i].data_ptr() and row[1] == u_t[i].data_ptr()
         assert row[2:6] == [CIFAR_D_SHAPES[i][0], CIFAR_D_SHAPES[i][1], v_offs[i], u_offs[i]]
-        assert row[6:] == [cta.col0, cta.width, cta.kind, i, int(cta.stream)]
+        assert row[6:] == [cta.col0, cta.width, cta.kind, i]
     assert sorted({r[9] for r in rows if r[8]}) == list(range(len(CIFAR_D_SHAPES)))
     assert t.out_sizes == [len(CIFAR_D_SHAPES), u_offs[-1], v_offs[-1]]
+    assert not t.plan.items and t.counters.tolist() == [0] * len(CIFAR_D_SHAPES)
     assert sum(s[0] * s[1] for s in CIFAR_D_SHAPES) == 1_052_544
     table = t.table
     assert t.get(w_t, u_t).table is table  # unchanged pointers: no rebuild
@@ -138,67 +139,137 @@ def test_table_rows_are_ragged_offsets():
 
 # the SNGAN-projection ImageNet-128 D's widest 3x3 convs, [fan_in, out]
 IMAGENET_WIDE_SHAPES = [(4608, 1024), (9216, 1024)]
+# the ImageNet-128 D's 19 SN weights in registration order, [fan_in, out]
+IMAGENET_D_SHAPES = [(27, 64), (576, 64), (3, 64), (576, 128), (1152, 128), (64, 128),
+                     (1152, 256), (2304, 256), (128, 256), (2304, 512), (4608, 512),
+                     (256, 512), (4608, 1024), (9216, 1024), (512, 1024), (9216, 1024),
+                     (9216, 1024), (1024, 1), (1000, 1024)]
 # ragged splits: M not a multiple of 4, a last rank narrower than the others,
 # K larger than a CTA's threads
 RAGGED_SHAPES = [(1153, 130), (64, 3000), (2000, 40)]
+# ragged streamed weights: M not a multiple of 4 or of a tile, K not a
+# multiple of the threads, tiles of 16, 32 and 64 columns
+RAGGED_STREAMED = [(9001, 1000), (4099, 700), (3001, 333), (13, 4096)]
 SHAPE_SETS = {"cifar_d_shapes": CIFAR_D_SHAPES, "pallas_shapes": PALLAS_SHAPES,
-              "imagenet_wide_shapes": IMAGENET_WIDE_SHAPES, "ragged_shapes": RAGGED_SHAPES}
+              "imagenet_wide_shapes": IMAGENET_WIDE_SHAPES, "ragged_shapes": RAGGED_SHAPES,
+              "imagenet_d_shapes": IMAGENET_D_SHAPES, "ragged_streamed": RAGGED_STREAMED}
+# the sets with a weight whose slab does not fit: all their weights stream
+STREAMED = {"imagenet_wide_shapes", "imagenet_d_shapes", "ragged_streamed"}
+
+
+def _stream_ctas(plan):
+    return [c for c in plan.ctas if c.kind == pi.STREAM]
 
 
 @pytest.mark.parametrize("name", sorted(SHAPE_SETS))
 def test_plan_owns_every_column_once(name):
-    """Every column of every weight belongs to exactly one CTA; a split
-    weight fills one whole cluster, rank c at position c of it."""
+    """Every column of every weight belongs to exactly one slab CTA or one
+    item; a split weight fills one whole cluster, rank c at position c of
+    it; a streaming CTA's items are consecutive, each a run of whole tiles
+    of one weight (the last one ragged), and a weight's parts are numbered
+    in column order."""
     shapes = SHAPE_SETS[name]
     plan = pi.plan_power_iteration(shapes)
     cluster = pi.CLUSTER
-    assert len(plan.ctas) % cluster == 0
+    assert len(plan.ctas) % cluster == 0 or plan.items
     owned = [np.zeros(m, int) for m, _ in shapes]
     for pos, c in enumerate(plan.ctas):
-        if c.kind == pi.IDLE:
+        if c.kind in (pi.IDLE, pi.STREAM):
             continue
         owned[c.weight][c.col0:c.col0 + c.width] += 1
         if c.kind == pi.SPLIT:
             first = plan.ctas[pos - pos % cluster]
             assert first.weight == c.weight and first.col0 == 0
             assert c.col0 == (pos % cluster) * first.width
+    dealt = []
+    for c in _stream_ctas(plan):
+        assert c.width >= 1
+        dealt += list(range(c.col0, c.col0 + c.width))
+    assert dealt == list(range(len(plan.items)))
+    for it in plan.items:
+        m, k = shapes[it.weight]
+        tc = pi.tile_cols(k)
+        assert it.col0 % tc == 0 and (it.width % tc == 0 or it.col0 + it.width == m)
+        owned[it.weight][it.col0:it.col0 + it.width] += 1
     assert all((o == 1).all() for o in owned)
-    for start in range(0, len(plan.ctas), cluster):  # one kind per cluster
+    for i in {it.weight for it in plan.items}:
+        mine = [it for it in plan.items if it.weight == i]
+        assert [it.part for it in mine] == list(range(len(mine)))
+        assert {it.parts for it in mine} == {len(mine)}
+        assert [it.col0 for it in mine] == sorted(it.col0 for it in mine)
+    if plan.items:  # a streamed launch: streaming CTAs only, no clusters
+        assert {c.kind for c in plan.ctas} <= {pi.STREAM, pi.IDLE}
+    for start in range(0, len(plan.ctas), cluster):  # split clusters hold nothing else
         kinds = {c.kind for c in plan.ctas[start:start + cluster]}
         assert kinds <= {pi.SPLIT} or pi.SPLIT not in kinds
 
 
 @pytest.mark.parametrize("name", sorted(SHAPE_SETS))
 def test_plan_fits_shared_memory_or_streams(name):
-    """No CTA needs more shared memory than the limit the plan claims; a
-    weight whose slab does not fit is marked to stream, and only then."""
+    """No CTA needs more shared memory than the limit the plan claims; when
+    a weight's slab does not fit in one CTA of its cluster (or alone), and
+    only then, every weight of the launch streams; a streamed tile takes
+    fewer chunk slots than a streaming CTA has, so that the next tile loads
+    while it is computed."""
     shapes = SHAPE_SETS[name]
     plan = pi.plan_power_iteration(shapes)
     limit = pi.SMEM_LIMIT
     assert limit == 232_448  # 227 KB, what one CTA may use on sm_90
     assert plan.smem_bytes == max(c.smem_bytes for c in plan.ctas) <= limit
     for c in plan.ctas:
-        if c.kind == pi.IDLE:
-            continue
-        m, k = shapes[c.weight]
-        nranks = pi.CLUSTER if c.kind == pi.SPLIT else 1
-        assert c.smem_bytes == pi.smem_bytes(k, c.width, nranks, c.stream)
-        widest = max(x.width for x in plan.ctas if x.weight == c.weight)
-        assert c.stream == (pi.smem_bytes(k, widest, nranks, False) > limit)
-    streamed = {shapes[c.weight] for c in plan.ctas if c.kind and c.stream}
-    assert streamed == (set(IMAGENET_WIDE_SHAPES) if name == "imagenet_wide_shapes" else set())
+        if c.kind in (pi.SOLO, pi.SPLIT):
+            m, k = shapes[c.weight]
+            nranks = pi.CLUSTER if c.kind == pi.SPLIT else 1
+            assert c.smem_bytes == pi.smem_bytes(k, c.width, nranks)
+            widest = max(x.width for x in plan.ctas if x.weight == c.weight)
+            assert pi.smem_bytes(k, widest, nranks) <= limit
+    streamed = {shapes[it.weight] for it in plan.items}
+    assert streamed == (set(shapes) if name in STREAMED else set())
+    assert (not all(pi.slab_fits(m, k) for m, k in shapes)) == (name in STREAMED)
+    if streamed:
+        kmax = max(k for _, k in streamed)
+        assert plan.slots == pi.stream_slots(kmax) <= pi.MAX_SLOTS
+        assert {c.smem_bytes for c in _stream_ctas(plan)} == {pi.stream_smem_bytes(kmax)}
+        for m, k in streamed:
+            assert pi.tile_chunks(k) < plan.slots
+    else:
+        assert plan.slots == 0
+    assert pi.tile_cols(1024) == 32 and pi.tile_chunks(1024) == 8  # 128-byte row pieces
+
+
+def test_streamed_bytes_are_balanced_at_the_imagenet_dims():
+    """The ImageNet-128 D on a card of 132 SMs: 9 of its weights do not fit
+    in shared memory, so all 19 stream, dealt to 132 CTAs without clusters,
+    each within 10% of an equal share of the cost (bytes, 8 KB a tile and
+    64 KB a weight; a tile of 128 KB is about a tenth of a share). Each of the three 37.75 MB convs
+    spreads over 32 or 33 CTAs, where PR 3's plan gave it one cluster of 8."""
+    plan = pi.plan_power_iteration(IMAGENET_D_SHAPES, max_ctas=132)
+    assert len(plan.ctas) == 132 and len(_stream_ctas(plan)) == 132
+    cost = [sum(4 * IMAGENET_D_SHAPES[it.weight][1] * it.width
+                + pi.TILE_COST_BYTES * pi._cdiv(it.width, pi.tile_cols(IMAGENET_D_SHAPES[it.weight][1]))
+                + (pi.ITEM_COST_BYTES if it.col0 == 0 else 0)
+                for it in plan.items[c.col0:c.col0 + c.width]) for c in _stream_ctas(plan)]
+    w_bytes = sum(4 * it.width * IMAGENET_D_SHAPES[it.weight][1] for it in plan.items)
+    assert w_bytes == 4 * sum(m * k for m, k in IMAGENET_D_SHAPES) == 157_740_544
+    share = sum(cost) / 132
+    assert max(cost) <= 1.1 * share and min(cost) >= 0.9 * share
+    for i in (13, 15, 16):
+        assert 32 <= plan.items[[it.weight for it in plan.items].index(i)].parts <= 33
+    # a card with fewer SMs: fewer streaming CTAs, the same rule
+    assert len(pi.plan_power_iteration(IMAGENET_D_SHAPES, max_ctas=114).ctas) == 114
 
 
 def test_plan_layout_of_the_cifar_discriminator():
     """The 7 [1152, 128] weights take a cluster of 8 each (144 columns, a
-    72 KB slab per CTA); the 4 small ones one CTA each in a shared cluster."""
+    72 KB slab per CTA); the 4 small ones one CTA each in a shared cluster;
+    nothing streams."""
     plan = pi.plan_power_iteration(CIFAR_D_SHAPES)
     split = [c for c in plan.ctas if c.kind == pi.SPLIT]
     solo = [c for c in plan.ctas if c.kind == pi.SOLO]
     assert len(split) == 7 * 8 and {c.width for c in split} == {144}
     assert sorted(CIFAR_D_SHAPES[c.weight] for c in solo) == sorted(
         [(27, 128), (3, 128), (128, 128), (128, 1)])
-    assert len(plan.ctas) == 64 and not any(c.stream for c in plan.ctas)
+    assert len(plan.ctas) == 64 and not plan.items and not _stream_ctas(plan)
     assert 4 * 128 * 144 < plan.smem_bytes < 100_000
 
 
@@ -208,24 +279,53 @@ def test_plan_rejects_what_the_kernel_cannot_take():
 
 
 def _emulate(plan, mats, us):
-    """The kernel's arithmetic over a plan, in float64 numpy: each CTA's v
-    slice and partial sums of W^T v over its columns, added over the
-    cluster, normalised after the sums as the kernel does."""
+    """The kernel's arithmetic over a plan, in float32 numpy. A slab
+    weight: each CTA's v slice and partial sums of W^T v over its columns,
+    added over the cluster in rank order. A streamed weight: tile by tile,
+    the tile's v (its rows added in the kernel's row groups), its |v|^2 and
+    its W^T v added into the item's partials, the items' partials then added
+    in part order; 1/|v| applied once, after the sums."""
     out = {}
-    by_weight = {}
+    slab, parts = {}, {}
     for c in plan.ctas:
-        if c.kind != pi.IDLE:
-            by_weight.setdefault(c.weight, []).append(c)
-    for i, ctas in by_weight.items():
-        w_t = mats[i].T.astype(np.float64)  # [K, M]
-        u = us[i][0].astype(np.float64)
-        v_raw = [u @ w_t[:, c.col0:c.col0 + c.width] for c in ctas]
-        ssv = sum(float(x @ x) for x in v_raw)
-        y = sum(w_t[:, c.col0:c.col0 + c.width] @ x for c, x in zip(ctas, v_raw))
-        y = y / np.sqrt(ssv + 1e-12)
-        s = float(y @ y)
-        out[i] = (s / np.sqrt(s + 1e-12), y / np.sqrt(s + 1e-12),
-                  np.concatenate(v_raw) / np.sqrt(ssv + 1e-12))
+        if c.kind in (pi.SOLO, pi.SPLIT):
+            slab.setdefault(c.weight, []).append(c)
+    for it in plan.items:
+        parts.setdefault(it.weight, []).append(it)
+    for i in sorted(set(slab) | set(parts)):
+        w_t = mats[i].T.astype(np.float32)  # [K, M]
+        u = us[i][0].astype(np.float32)
+        k, m = w_t.shape
+        v_raw = np.zeros(m, np.float32)
+        ys, sss = [], []
+        if i in slab:
+            for c in slab[i]:
+                sl = slice(c.col0, c.col0 + c.width)
+                v_raw[sl] = u @ w_t[:, sl]
+                sss.append(np.float32(v_raw[sl] @ v_raw[sl]))
+                ys.append(w_t[:, sl] @ v_raw[sl])
+        tc = pi.tile_cols(k) if i in parts else 0
+        rp = pi.WARPS * 32 // (tc // 4) if tc else 0  # rows per step of the v pass
+        for it in parts.get(i, []):
+            y, ss = np.zeros(k, np.float32), np.float32(0)
+            for c0 in range(it.col0, it.col0 + it.width, tc):
+                sl = slice(c0, min(c0 + tc, it.col0 + it.width))
+                v = np.sum([u[g::rp] @ w_t[g::rp, sl] for g in range(rp)], axis=0,
+                           dtype=np.float32)
+                v_raw[sl] = v
+                ss = np.float32(ss + v @ v)
+                y = y + w_t[:, sl] @ v
+            ys.append(y)
+            sss.append(ss)
+        ssv = np.float32(0)
+        ysum = np.zeros(k, np.float32)
+        for y, ss in zip(ys, sss):  # rank or part order
+            ysum, ssv = ysum + y, np.float32(ssv + ss)
+        inv_v = np.float32(1) / np.sqrt(ssv + np.float32(1e-12))
+        y = ysum * inv_v
+        s = np.float32(y @ y)
+        inv_u = np.float32(1) / np.sqrt(s + np.float32(1e-12))
+        out[i] = (s * inv_u, y * inv_u, v_raw * inv_v)
     return out
 
 

@@ -76,7 +76,8 @@ def test_conditional_cifar_d_has_12_sn_weights():
     plan = pi.plan_power_iteration(dims)
     solo = [c for c in plan.ctas if c.kind == pi.SOLO]
     emb = [c for c in plan.ctas if c.weight == 11]
-    assert len(plan.ctas) == 64 and len(solo) == 5 and not any(c.stream for c in plan.ctas)
+    assert len(plan.ctas) == 64 and len(solo) == 5 and not plan.items
+    assert not any(c.kind == pi.STREAM for c in plan.ctas)
     assert emb == [c for c in solo if c.weight == 11] and emb[0].width == 10
     assert (4 * emb[0].width) % 16 != 0  # not 16-byte rows: the 4-byte copy path
 

@@ -439,3 +439,50 @@ def test_cli_sp_shards_2_logs_the_one_process_losses(tmp_path):
             assert set(a) == set(b)
             for k in b:
                 _close(a[k], b[k], 1e-4, 1e-5, f"{phase} {k}")
+
+
+def test_sp_shards_the_reference_cannot_shard_raise_there_and_exit_2_here(capsys):
+    """The reference's mesh takes any sp that divides the device count, but
+    GSPMD does not pad an uneven shard: its first PGGAN batch, 4x4 images
+    sharded by height over 'sp' 3, raises ``ValueError`` in ``shard_batch``
+    (and under ``jax.jit`` with those out_shardings). The port refuses sp 3
+    when it parses its flags (rc 2)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from gan_lib_tensorflow_tpu.parallel import create_mesh, shard_batch
+    from gan_lib_tensorflow_tpu_torch.cli import train_pggan
+
+    mesh = create_mesh((1, 3), ("data", "sp"), devices=jax.devices()[:3])
+    images = np.zeros((2, 4, 4, 3), np.float32)
+    with pytest.raises(ValueError, match="divisible by 3"):
+        shard_batch({"image": images}, mesh, spatial_axis="sp")
+    with pytest.raises(ValueError, match="divisible by 3"):
+        jax.jit(lambda: jnp.zeros((2, 4, 4, 3)),
+                out_shardings=NamedSharding(mesh, P("data", "sp")))()
+    with pytest.raises(SystemExit) as e:
+        train_pggan.parse_args(["--device", "cpu", "--sp-shards", "3"])
+    assert e.value.code == 2
+    assert "--sp-shards 3" in capsys.readouterr().err
+
+
+def test_cli_sp_shards_2_below_8x8_shards_no_level_and_logs_the_one_process_losses(tmp_path):
+    """A ladder that ends at 4x4 under 'sp' 2 (which the reference runs): no
+    level is sharded, and every logged metric is the one-process run's."""
+    from gan_lib_tensorflow_tpu_torch.cli import train_pggan
+    argv = CLI_ARGV[:CLI_ARGV.index("--final-resolution")] + [
+        "--final-resolution", "4", "--width-mul", "0.015625", "--z-dim", "8",
+        "--batch-by-res", "4:4", "--steps-per-phase", "2", "--compute-dtype", "fp32",
+        "--log-every", "1"]
+    _run("_cli_rank", 2, tmp_path,
+         argv=argv + ["--sp-shards", "2", "--out-dir", str(tmp_path / "ranks")])
+    train_pggan.main(argv + ["--out-dir", str(tmp_path / "one")])
+    got, ref = _logs(tmp_path / "ranks"), _logs(tmp_path / "one")
+    assert set(got) == set(ref) and len(ref) == 1
+    for phase, lines in ref.items():
+        assert len(got[phase]) == len(lines) == 2
+        for a, b in zip(got[phase], lines):
+            assert set(a) == set(b)
+            for k in b:
+                _close(a[k], b[k], 1e-4, 1e-5, f"{phase} {k}")

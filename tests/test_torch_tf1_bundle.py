@@ -13,6 +13,14 @@ checkpoints of the test scaffolding writer (``bundle_writer.py``: many
 blocks, prefix-compressed keys, slices and shards, V1 files). Corrupt and
 unsupported inputs are refused by name. The CRC32C is held to the plain
 byte loop at sizes either side of its lanes.
+
+``listing`` is held equal, as a list, to the order of
+``get_variable_to_shape_map()`` (a libstdc++ hash map's, which the
+reference importer reads) on every committed fixture and on writer
+checkpoints of names that tie in the importer's natural-sort key (``a01``
+and ``a1``, ``w_1`` and ``w_01``), V2 and V1 (one and three files), with
+enough names to rehash the map several times; ``hash_map_order`` is held
+to the order TensorFlow gives for names inserted in key order.
 """
 
 import hashlib
@@ -81,6 +89,38 @@ def test_reader_equals_tensorflow(key):
                     bundle.read(name)
                 continue
             _assert_bit_equal(bundle.read(name), want, name)
+
+
+@pytest.mark.parametrize("key", V2)
+def test_listing_is_tensorflows(key):
+    reader = tf.train.load_checkpoint(_prefix(key))
+    with tf1_bundle.open_bundle(_prefix(key)) as bundle:
+        assert bundle.listing == list(reader.get_variable_to_shape_map())
+
+
+# names that tie in the importer's natural-sort key, and fillers that take
+# the map through its rehashes at 14, 30, 60 and 128 names
+TIED = ["a01", "a1", "w_1", "w_01", "dis/conv01/W", "dis/conv1/W", "gen/b_002", "gen/b_2",
+        "Discriminator.01.W", "Discriminator.1.W"]
+
+
+@pytest.mark.parametrize("fmt", ["v2", "v1", "v1_3_files"])
+def test_listing_is_tensorflows_on_tied_names(fmt, tmp_path):
+    rng = np.random.default_rng(7)
+    names = TIED + [f"dis/block{i}/{leaf}" for i in range(30) for leaf in ("W", "b", "u", "g")]
+    tensors = {name: rng.standard_normal(2).astype(np.float32) for name in names}
+    if fmt == "v2":
+        path = bundle_writer.write_bundle(str(tmp_path / "model.ckpt"), tensors)
+    else:
+        path = bundle_writer.write_v1(str(tmp_path / "model.ckpt"), tensors,
+                                      num_shards=3 if fmt == "v1_3_files" else 1)
+    want = list(tf.train.load_checkpoint(path).get_variable_to_shape_map())
+    with tf1_bundle.open_bundle(path) as bundle:
+        assert bundle.listing == want and want != sorted(want)
+    assert list(tf1_bundle.read_tf_checkpoint(path)) == [n for n in want
+                                                         if not tf1_bundle.DROP.search(n)]
+    if fmt == "v2":
+        assert tf1_bundle.hash_map_order(sorted(names)) == want
 
 
 def test_committed_fixtures_equal_their_manifest():

@@ -22,8 +22,9 @@ tenth of the time). The reference tool runs unchanged except for three
 things, each to spare op-by-op compiles or disk round trips. Its random
 init is traced (``jax.eval_shape``) and zero-filled: every compared leaf
 comes from the checkpoint, and ``--allow-partial`` compares the matched
-leaves only (the port's seed-0 init cannot equal JAX's ``PRNGKey(0)``
-draw). Its ``create_state`` runs under one ``jax.jit`` (the same zeros and
+leaves with the reference tool's output and the unmatched one with the
+reference's real ``PRNGKey(0)`` init (every family's init:
+``tests/test_torch_flax_init.py``). Its ``create_state`` runs under one ``jax.jit`` (the same zeros and
 copies, bit for bit, from one compile in place of one per leaf shape). And
 the state it hands its orbax ``CheckpointManager.save`` is kept in memory,
 except for SNGAN CIFAR-10 (``ORBAX``), whose step-0 checkpoint goes to
@@ -322,7 +323,9 @@ def test_report_only_writes_no_checkpoint(checkpoints, traced_reference, tmp_pat
 def test_unmatched_leaf_fails_loudly_and_allow_partial(checkpoints, traced_reference, tmp_path):
     """G's dense kernel removed: both tools refuse; under --allow-partial
     both write a checkpoint whose matched leaves are equal, with the same
-    report."""
+    report, and the unmatched leaf holds the reference's ``PRNGKey(0)``
+    draw (the reference tool runs here with its init zero-filled, so the
+    draw is taken from its ``g_init`` directly)."""
     _, named = checkpoints["pggan"]
     partial = _write_tf1(tmp_path, [n for n in named if not (
         n[0].startswith("Generator") and n[1] == "params/dense_4/kernel")])
@@ -339,12 +342,26 @@ def test_unmatched_leaf_fails_loudly_and_allow_partial(checkpoints, traced_refer
     only = {(key, name) for key in ("g", "d", "g_mu", "g_nu", "d_mu", "d_nu", "ema")
             for name in want[key] if not (key in ("g", "ema") and name == "dense_4.weight")}
     assert _assert_same(got, want, only) == len(only)
-    # the unmatched leaf keeps the port's seed-0 init (neither the source
-    # nor the reference's draw), in G and in the EMA
-    seed0 = port.create_state(*port.build_models(_args("pggan", FAMILIES["pggan"][1])),
-                              device="cpu").g
-    np.testing.assert_array_equal(got["g"]["dense_4.weight"], seed0.dense_4.weight.detach().numpy())
+    # the unmatched leaf holds the reference's init, in G and in the EMA
+    g_vars = _ref_inits(_args("pggan", FAMILIES["pggan"][1]))[0]
+    draw = convert.to_torch_names(g_vars["params"])["dense_4.weight"]
+    np.testing.assert_allclose(got["g"]["dense_4.weight"], draw, rtol=1e-6, atol=1e-7)
     np.testing.assert_array_equal(got["ema"]["dense_4.weight"], got["g"]["dense_4.weight"])
+
+
+def _ref_inits(args):
+    """The reference tool's ``g_init(PRNGKey(0))`` and ``d_init(PRNGKey(1))``
+    (pix2pix's D on both images, as ``_traced_build``)."""
+    g, d, g_init, d_init = _ref_build(args) if args.model != "pix2pix" else (
+        None, None, None, None)
+    if args.model == "pix2pix":
+        from gan_lib_tensorflow_tpu.models import pix2pix
+        g = pix2pix.UNetGenerator(base_ch=args.ngf)
+        d = pix2pix.PatchGANDiscriminator(base_ch=args.ndf)
+        xx = jnp.zeros((1, args.image_size, args.image_size, 3))
+        g_init = lambda r: g.init(r, xx, train=False)
+        d_init = lambda r: d.init(r, xx, xx, train=False)
+    return g_init(jax.random.PRNGKey(0)), d_init(jax.random.PRNGKey(1))
 
 
 def test_map_pins_and_a_typod_key(checkpoints, traced_reference, tmp_path):
@@ -496,6 +513,43 @@ def test_kept_variables_of_every_dtype_import_as_the_reference_imports(tmp_path)
     assert len(parsed["discriminator"]["unmatched_tf"]) == 2
     want = _ref_tensors(_ref_raw(os.path.join(ref_out, "ckpt")))
     assert _assert_same(_port_tensors(os.path.join(port_out, "ckpt"), "sngan"), want) > len(named)
+
+
+@pytest.mark.parametrize("fmt", ["v2", "v1_2_files"])
+def test_names_tied_in_natural_order_match_as_the_reference_tool_matches_them(fmt, tmp_path):
+    """Within a (role, shape) group both tools sort TensorFlow's names by a
+    natural key, stably, so names that tie in it (``a01``/``a1``) keep the
+    order they were read in: the port reads them in
+    ``get_variable_to_shape_map()``'s order, as the reference does, and
+    the two assign the same leaves, where the bundle's key order would not."""
+    from gan_lib_tensorflow_tpu_torch.tools import tf1_bundle
+    rng = np.random.default_rng(11)
+    stems = ["a1", "a01", "w_01", "w_1", "c2", "c002", "x10", "x010"]
+    stems += [f"b{i}" for i in range(40)]
+    tensors = {f"dis/{stem}/W": rng.standard_normal((3, 2)).astype(np.float32) for stem in stems}
+    tensors.update({f"gen/{stem}/b": rng.standard_normal(4).astype(np.float32) for stem in stems})
+    prefix = str(tmp_path / "model.ckpt")
+    path = (bundle_writer.write_bundle(prefix, tensors) if fmt == "v2"
+            else bundle_writer.write_v1(prefix, tensors, num_shards=2))
+    ref_vars, port_vars = ref.read_tf_checkpoint(path), tf1_bundle.read_tf_checkpoint(path)
+    assert list(port_vars) == list(ref_vars)
+    leaves = {"d": [(f"conv{i}/kernel", ("conv%d" % i, "kernel"), np.zeros((3, 2)), "kernel")
+                    for i in range(len(stems))],
+              "g": [(f"dense{i}/bias", ("dense%d" % i, "bias"), np.zeros(4), "bias")
+                    for i in range(len(stems))]}
+    nets = dict(zip("gd", ref.partition_networks(ref_vars, None, None)[:2]))
+    port_nets = dict(zip("gd", port.partition_networks(port_vars, None, None)[:2]))
+    differs = False
+    for net in "gd":
+        want, ref_report = ref.match(nets[net], leaves[net], {}, net)
+        got, port_report = port.match(port_nets[net], leaves[net], {}, net)
+        assert port_report == ref_report
+        assert set(got) == set(want)
+        for keys in want:
+            np.testing.assert_array_equal(got[keys], want[keys])
+        _, key_order = port.match(dict(sorted(port_nets[net].items())), leaves[net], {}, net)
+        differs |= key_order != ref_report
+    assert differs
 
 
 def test_v1_checkpoint_imports_as_the_reference_imports(tmp_path):

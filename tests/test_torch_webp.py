@@ -16,7 +16,10 @@ against Pillow, on the CPU: bit-equal, with no tolerance.
   VP8L signature or version, a VP8 inter frame, a corrupt ALPH header are
   refused with a ``ValueError`` naming the file (Pillow refuses each too);
   bit flips and cuts of every fixture either decode equal to Pillow or are
-  refused by both.
+  refused by both. The committed ``corrupt_y2_overflow.webp`` (three bit
+  flips of a lossy fixture's frame header: an all-ones token partition, a
+  Y2 DC past 16 bits, and libwebp's branch-free sign read parting from a
+  plain boolean read) decodes to Pillow's garbage.
 - A WebP file under a ``.png`` name in an ``ImageFolderFlat``: batches
   equal to the reference loader's, which sniffs the format with Pillow.
 """
@@ -195,6 +198,18 @@ def test_corrupted_fixtures_decode_as_pillow_or_are_refused_by_both(name, tmp_pa
                 codec.decode_webp_rgba(path)
         else:
             np.testing.assert_array_equal(codec.decode_webp_rgba(path), want)
+
+
+def test_the_corrupt_y2_fixture_is_three_flips_that_decode_to_pillows_garbage():
+    path = os.path.join(FIXTURES, "corrupt_y2_overflow.webp")
+    bad = open(path, "rb").read()
+    clean = open(os.path.join(FIXTURES, "lossy_partitions2.webp"), "rb").read()
+    assert len(bad) == len(clean)
+    assert sum(bin(a ^ b).count("1") for a, b in zip(bad, clean)) == 3
+    want = _pillow(path, "RGBA")
+    assert not np.array_equal(want, _pillow(os.path.join(FIXTURES, "lossy_partitions2.webp"),
+                                            "RGBA"))
+    np.testing.assert_array_equal(codec.decode_webp_rgba(path), want)
 
 
 def test_webp_under_a_png_name_in_an_image_folder(tmp_path):

@@ -15,7 +15,8 @@ Pillow does not expose is encoded by calling
 libwebp's ``WebPEncode`` (the library Pillow bundles) through ``ctypes``
 with a ``WebPConfig``: the simple loop filter (``filter_type 0``), 2, 4 and
 8 token partitions, one segment, a filter sharpness, each alpha filter and
-uncompressed alpha. An animation whose first frame (ALPH and VP8) covers
+uncompressed alpha. One file is corrupt: bit flips of a lossy one that
+Pillow still decodes, to garbage. An animation whose first frame (ALPH and VP8) covers
 part of the canvas is assembled by hand. Sizes include 1x1, 17x13 and
 67x45, so partial macroblocks and odd chroma widths are decoded.
 
@@ -190,6 +191,16 @@ def encode(lib, pixels: np.ndarray, **options) -> bytes:
         lib.WebPMemoryWriterClear(ctypes.byref(writer))
 
 
+def flip_vp8_bits(data: bytes, flips) -> bytes:
+    """``data`` with the bits ``mask`` of the bytes at ``offset`` (from the
+    start of the VP8 chunk's payload) flipped, for each ``(offset, mask)``."""
+    out = bytearray(data)
+    start = data.index(b"VP8 ") + 8
+    for offset, mask in flips:
+        out[start + offset] ^= mask
+    return bytes(out)
+
+
 def fixtures() -> dict:
     """``{file name: bytes}``."""
     import io
@@ -254,6 +265,12 @@ def fixtures() -> dict:
     out["lossy_sharpness5.webp"] = encode(lib, src, quality=30.0, filter_sharpness=5,
                                           filter_strength=80)
     out["lossy_no_filter.webp"] = encode(lib, src, quality=50.0, filter_strength=0)
+    # three bit flips in the frame header of the 2-partition file: its token
+    # partition then reads as all ones, the Y2 DC of the first macroblock
+    # overflows 16 bits (2114 * 38), and libwebp's sign read (VP8GetSigned)
+    # parts from a plain boolean read; Pillow decodes the garbage
+    out["corrupt_y2_overflow.webp"] = flip_vp8_bits(
+        out["lossy_partitions2.webp"], ((22, 0x02), (23, 0x40), (36, 0x04)))
     for kind, filtering in (("steps", 2), ("vertical", 1), ("gradient", 1), ("rings", 0)):
         rgba = np.dstack([photo(45, 67, 20), alpha_plane(45, 67, kind)])
         out[f"alpha_{kind}.webp"] = encode(lib, rgba, quality=60.0, alpha_filtering=filtering)
