@@ -25,6 +25,7 @@ import torch
 
 from .. import resolve_device
 from ..parallel.sharding import data_rows, height_rows
+from ..utils.profiler import span
 from .base import normalize_u8
 from .packed import META_NAME, PackedImageStore, PackedPairedStore, crop_pairs
 from .pipeline import ThreadedSource
@@ -171,18 +172,23 @@ class DeviceCachedStore:
     def gather(self, idx: np.ndarray) -> dict:
         """Images (normalized; the rank's height rows under ``spatial_axis``)
         and labels of ``idx`` (any shape), on the device."""
-        i = torch.from_numpy(idx.astype(np.int64)).to(self.device)
-        out = {"image": normalize_u8(self._images[:, self._height][i])}
-        if self._labels is not None:
-            out["label"] = self._labels[i]
+        with span("data.upload"):  # from pageable memory: waits for the card
+            i = torch.from_numpy(idx.astype(np.int64)).to(self.device)
+        with span("data.gather"):
+            out = {"image": normalize_u8(self._images[:, self._height][i])}
+            if self._labels is not None:
+                out["label"] = self._labels[i]
         return out
 
     def __iter__(self) -> Iterator[dict]:
         # the position lives on the instance: a second iter() continues
         while True:
-            idx = self.indices_for(self._pos)
-            self._pos += 1
-            yield self.gather(idx[:, self._rows])
+            with span("data.batch"):
+                with span("data.indices"):
+                    idx = self.indices_for(self._pos)
+                self._pos += 1
+                batch = self.gather(idx[:, self._rows])
+            yield batch
 
     def sequential_batches(self, batch_size: int, n_batches: int) -> Iterator[torch.Tensor]:
         """Normalized ``[B, H, W, C]`` batches of the first ``n_batches *
@@ -280,17 +286,22 @@ class DeviceCachedPairedStore:
     def gather(self, idx, oy, ox, fl) -> dict:
         """The ``[n_micro, b, c, c, 3]`` stacks of these controls (each
         ``[n_micro * b]``), on the device."""
-        ctl = torch.from_numpy(np.stack([idx, oy, ox, fl]).astype(np.int64)).to(self.device)
+        with span("data.upload"):  # from pageable memory: waits for the card
+            ctl = torch.from_numpy(np.stack([idx, oy, ox, fl]).astype(np.int64)).to(self.device)
         c = self.image_size
-        inp, tgt = crop_pairs(self._store, ctl[0], ctl[1], ctl[2], ctl[3].bool(), c,
-                              *self._offsets)
+        with span("data.gather"):
+            inp, tgt = crop_pairs(self._store, ctl[0], ctl[1], ctl[2], ctl[3].bool(), c,
+                                  *self._offsets)
         shape = (self.n_micro, -1, c, c, inp.shape[-1])
         return {"input": inp.view(shape), "target": tgt.view(shape)}
 
     def __iter__(self) -> Iterator[dict]:
         # the position lives on the instance: a second iter() continues
         while True:
-            controls = self.controls_for(self._pos)
-            self._pos += 1
-            yield self.gather(*(c.reshape(self.n_micro, -1)[:, self._rows].reshape(-1)
-                                for c in controls))
+            with span("data.batch"):
+                with span("data.indices"):
+                    controls = self.controls_for(self._pos)
+                self._pos += 1
+                batch = self.gather(*(c.reshape(self.n_micro, -1)[:, self._rows].reshape(-1)
+                                      for c in controls))
+            yield batch

@@ -21,6 +21,7 @@ from typing import Callable
 import torch
 
 from ..parallel.sharding import sp_size, sum_over_sp
+from ..utils.profiler import span
 
 
 def gradient_penalty(critic_fn: Callable[[torch.Tensor], torch.Tensor],
@@ -31,20 +32,23 @@ def gradient_penalty(critic_fn: Callable[[torch.Tensor], torch.Tensor],
     fake. ``u`` ``[N, 1, ...]`` holds the U[0, 1) weights (drawn by the
     caller: the reference draws them from its rng); the norm is taken per
     sample, with ``eps`` under the root. ``height_sharded``: real and fake
-    hold the rank's height rows of the enclosing step's 'sp' line."""
-    sp = sp_size() if height_sharded else 1
-    x_hat = u * real.float() + (1.0 - u) * fake.float()
-    if not x_hat.requires_grad:
-        x_hat.requires_grad_(True)
-    critic_sum = critic_fn(x_hat).float().sum()
-    if sp > 1:
-        critic_sum = critic_sum / sp
-    (grads,) = torch.autograd.grad(critic_sum, x_hat, create_graph=True)
-    squares = torch.sum(grads.float() ** 2, dim=tuple(range(1, grads.dim())))
-    if sp > 1:
-        squares = sum_over_sp(squares)
-    norms = torch.sqrt(squares + eps)
-    return torch.mean((norms - target) ** 2)
+    hold the rank's height rows of the enclosing step's 'sp' line. Its span,
+    ``d.penalty``, holds the forward and the inner gradient; the second-order
+    part runs in the critic update's ``d.backward``."""
+    with span("d.penalty"):
+        sp = sp_size() if height_sharded else 1
+        x_hat = u * real.float() + (1.0 - u) * fake.float()
+        if not x_hat.requires_grad:
+            x_hat.requires_grad_(True)
+        critic_sum = critic_fn(x_hat).float().sum()
+        if sp > 1:
+            critic_sum = critic_sum / sp
+        (grads,) = torch.autograd.grad(critic_sum, x_hat, create_graph=True)
+        squares = torch.sum(grads.float() ** 2, dim=tuple(range(1, grads.dim())))
+        if sp > 1:
+            squares = sum_over_sp(squares)
+        norms = torch.sqrt(squares + eps)
+        return torch.mean((norms - target) ** 2)
 
 
 def drift_penalty(real_logits: torch.Tensor) -> torch.Tensor:

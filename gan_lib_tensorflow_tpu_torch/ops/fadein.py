@@ -20,6 +20,7 @@ from typing import Callable
 import torch
 
 from ..utils.debug_nans import check_kernel_output
+from ..utils.profiler import span
 from .cuda_lib import KernelLibrary
 
 # Launches of the CUDA kernel in this process (the plain version does not
@@ -67,12 +68,13 @@ def launch(a: torch.Tensor, b: torch.Tensor, alpha: float) -> torch.Tensor:
     _check(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"the fade-in kernel runs on CUDA tensors, got {a.device}")
-    out = torch.empty_like(a)
-    lib = library.load()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.gl_fadein_blend(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                  alpha, 1.0 - alpha, a.numel(), stream)
+    with span("kernel.fadein"):
+        out = torch.empty_like(a)
+        lib = library.load()
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            err = lib.gl_fadein_blend(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                      alpha, 1.0 - alpha, a.numel(), stream)
     library.check(err, "fade-in blend kernel")
     launches += 1
     check_kernel_output("fade-in blend kernel", out)

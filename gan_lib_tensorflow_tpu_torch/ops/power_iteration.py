@@ -35,6 +35,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ..utils.debug_nans import check_kernel_output
+from ..utils.profiler import span
 from .cuda_lib import KernelLibrary
 from .sn import power_iteration
 
@@ -373,16 +374,18 @@ def launch(weights: Sequence[torch.Tensor], us: Sequence[torch.Tensor],
     dev = weights[0].device
     if dev.type != "cuda":
         raise ValueError(f"the power-iteration kernel runs on CUDA tensors, got {dev}")
-    out = torch.empty(sum(t.out_sizes), device=dev, dtype=torch.float32)
-    sigma, u_out, v_out = out.split_with_sizes(t.out_sizes)
-    lib = library.load()
     plan = t.plan
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gl_power_iteration(
-            t.table.data_ptr(), len(plan.ctas), t.items.data_ptr(), int(bool(plan.items)),
-            t.workspace.data_ptr(), t.counters.data_ptr(), plan.smem_bytes, sigma.data_ptr(),
-            u_out.data_ptr(), v_out.data_ptr(), int(write_u), stream)
+    # path 1: clustered, every slab in shared memory; path 2: streamed
+    with span("kernel.power_iteration", path=2 if plan.items else 1, weights=len(weights)):
+        out = torch.empty(sum(t.out_sizes), device=dev, dtype=torch.float32)
+        sigma, u_out, v_out = out.split_with_sizes(t.out_sizes)
+        lib = library.load()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.gl_power_iteration(
+                t.table.data_ptr(), len(plan.ctas), t.items.data_ptr(), int(bool(plan.items)),
+                t.workspace.data_ptr(), t.counters.data_ptr(), plan.smem_bytes,
+                sigma.data_ptr(), u_out.data_ptr(), v_out.data_ptr(), int(write_u), stream)
     library.check(err, "power-iteration kernel")
     launches += 1
     check_kernel_output("power-iteration kernel", sigma, u_out, v_out)

@@ -24,7 +24,21 @@ import torch
 
 from .. import resolve_device
 from ..data.base import normalize_u8
+from ..utils.profiler import span
 from .sharding import height_rows
+
+_END = object()
+
+
+def _waited(it: Iterator) -> Iterator:
+    """The items of ``it``, each wait for one inside a ``data.queue_wait``
+    span (a host source blocks on its workers' queue there)."""
+    while True:
+        with span("data.queue_wait"):
+            item = next(it, _END)
+        if item is _END:
+            return
+        yield item
 
 
 def _finish(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -42,6 +56,7 @@ def prefetch_to_device(it: Iterator[Dict[str, np.ndarray]], device="cuda",
     height rows (dim 2) of the ``[n_micro, B, H, W, C]`` leaves. On the CPU
     the arrays are wrapped, not copied, and normalized in place of the copy."""
     dev = resolve_device(device)
+    it = _waited(iter(it))
     if rows is not None:
         it = ({k: v[:, rows] for k, v in batch.items()} for batch in it)
     if spatial_axis is not None:

@@ -21,8 +21,6 @@ import os
 import time
 from typing import Any, Callable, Dict, Iterable, Iterator, Optional
 
-import torch
-
 from ..data.base import microbatch_stack
 from ..parallel import barrier, data_rows, is_writer, prefetch_to_device
 from ..parallel.sharding import spatial_axis_of
@@ -172,7 +170,7 @@ def train_loop(state, step_fn: Callable, source: Iterable, config: LoopConfig,
                 trace = profiler.start_trace()
             if alpha_fn is not None:
                 state.alpha = float(alpha_fn(step))
-            with (torch.profiler.record_function(f"train_step {step + 1}")
+            with (profiler.span(f"train_step {step + 1}", step=step + 1)
                   if trace is not None else contextlib.nullcontext()):
                 metrics = step_fn(state, next(batches))
             if trace is not None and step == start_step + 10 + config.trace_steps:

@@ -33,6 +33,11 @@ import torch
 
 from ..parallel.mesh import sharded_step
 from ..parallel.sharding import average, global_batch, local_rows
+from ..utils.profiler import span
+
+# each update's spans (utils/profiler.py): its gradient, all-reduce and optimizer
+_UPDATE_SPANS = {net: (f"{net}.backward", f"{net}.allreduce", f"{net}.optimizer")
+                 for net in ("d", "g")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,18 +107,23 @@ def make_train_step(spec: GANSpec):
         rank's gradients (its 'model' shards of the wide ones) averaged over
         'data', the update on what the rank holds, the shards gathered back
         into the network."""
+        backward, allreduce, optimizer = _UPDATE_SPANS[net]
         module, shards = getattr(state, net), getattr(state, f"{net}_shards")
         params = list(module.parameters())
-        grads = torch.autograd.grad(loss, params)
-        if shards is not None:
-            grads, params = shards.shard_grads(grads), shards.opt_params()
+        with span(backward):
+            grads = torch.autograd.grad(loss, params)
+            if shards is not None:
+                grads, params = shards.shard_grads(grads), shards.opt_params()
         if state.mesh is not None:
-            # None: every rank of the mesh, the 'sp' sum with the 'data' mean
-            grads = average(grads, state.mesh.group("data")
-                            if state.mesh.size("sp") == 1 else None)
-        _apply(params, grads, getattr(state, f"{net}_opt"), getattr(state, f"{net}_sched"))
-        if shards is not None:
-            shards.gather()
+            with span(allreduce):
+                # None: every rank of the mesh, the 'sp' sum with the 'data' mean
+                grads = average(grads, state.mesh.group("data")
+                                if state.mesh.size("sp") == 1 else None)
+        with span(optimizer):
+            _apply(params, grads, getattr(state, f"{net}_opt"),
+                   getattr(state, f"{net}_sched"))
+            if shards is not None:
+                shards.gather()
 
     def train_step(state, batch, z_critic: Optional[torch.Tensor] = None,
                    z_g: Optional[torch.Tensor] = None,
@@ -122,7 +132,7 @@ def make_train_step(spec: GANSpec):
                    labels_g: Optional[torch.Tensor] = None,
                    masks_critic: Optional[Sequence] = None,
                    masks_g=None) -> Dict[str, torch.Tensor]:
-        with sharded_step(state.mesh):
+        with span("step", step=state.step + 1), sharded_step(state.mesh):
             return _step(state, batch, z_critic, z_g, u_gp, labels_critic, labels_g,
                          masks_critic, masks_g)
 
@@ -145,25 +155,32 @@ def make_train_step(spec: GANSpec):
             def g_call(masks):
                 return spec.g_loss(micro(-1), state.g_noise, masks)
         else:
-            d_call, g_call = _drawn_calls(spec, state, batch, images, z_critic, z_g,
-                                          u_gp, labels_critic, labels_g)
+            with span("step.fakes"):
+                d_call, g_call = _drawn_calls(spec, state, batch, images, z_critic, z_g,
+                                              u_gp, labels_critic, labels_g)
 
         for i in range(spec.n_critic):
-            loss, metrics = d_call(i, None if masks_critic is None else masks_critic[i])
-            _update(state, "d", loss)
+            with span("step.d_update", i=i):
+                with span("d.loss"):
+                    loss, metrics = d_call(i, None if masks_critic is None
+                                           else masks_critic[i])
+                _update(state, "d", loss)
 
-        g_loss, g_metrics = g_call(masks_g)
-        _update(state, "g", g_loss)
+        with span("step.g_update"):
+            with span("g.loss"):
+                g_loss, g_metrics = g_call(masks_g)
+            _update(state, "g", g_loss)
 
         if spec.ema_decay > 0:
-            d_ = spec.ema_decay
-            names = [name for name, _ in state.g.named_parameters()]
-            held = (state.g_shards.opt_params() if state.g_shards is not None
-                    else list(state.g.parameters()))
-            ema = [state.ema_params[name] for name in names]
-            with torch.no_grad():
-                torch._foreach_mul_(ema, d_)
-                torch._foreach_add_(ema, held, alpha=1.0 - d_)
+            with span("step.ema"):
+                d_ = spec.ema_decay
+                names = [name for name, _ in state.g.named_parameters()]
+                held = (state.g_shards.opt_params() if state.g_shards is not None
+                        else list(state.g.parameters()))
+                ema = [state.ema_params[name] for name in names]
+                with torch.no_grad():
+                    torch._foreach_mul_(ema, d_)
+                    torch._foreach_add_(ema, held, alpha=1.0 - d_)
         state.step += 1
         out = {**metrics, **g_metrics, "g_loss": g_loss.detach()}
         if state.mesh is not None:  # the global batch's means

@@ -20,15 +20,17 @@ spectral-norm weights). ``--model pix2pix``: the pix2pix step at full width
 (default ``device-fake``); with the host renderers (``fake``,
 ``fake-rich``) only the wall ms/step is measured.
 
-Warms up, then traces a few steps with ``torch.profiler`` and prints: wall
-ms/step (timed without the profiler), device-busy ms/step (the sum of the
-traced kernels' times; user annotations such as ``Optimizer.step`` are left
-out, they overlap their kernels) and the idle share against the unprofiled
-wall time, kernels per step, each hand-written kernel's launches per step,
-the device time by kind of kernel (convolutions and matmuls, elementwise,
-casts and copies, reductions, pooling, the optimizers' fused updates, the
-hand-written kernels) and the kernels with the most device time.
-The trace goes to ``chiprun_out/torch_step_trace_<model>.json``.
+Warms up, then traces a few steps with ``torch.profiler`` and the port's
+span recorder (``utils/profiler.py``) and prints: wall ms/step (timed
+without the profiler), device-busy ms/step (the sum of the traced kernels'
+times; user annotations such as ``Optimizer.step`` are left out, they
+overlap their kernels) and the idle share of the traced window (one minus
+the union of the device operations' intervals over it), kernels per step,
+each hand-written kernel's launches per step, the host ms per step of each
+program span, the device time by kind of kernel (convolutions and matmuls,
+elementwise, casts and copies, reductions, pooling, the optimizers' fused
+updates, the hand-written kernels) and the kernels with the most device
+time. The trace goes to ``chiprun_out/torch_step_trace_<model>.json``.
 
 ``--model pggan_eval``: where the time of the PGGAN eval at Karras scale
 goes (``profile_pggan_eval``): the plain ``cli.evaluate --model pggan`` at
@@ -116,11 +118,27 @@ def build_step(model: str, num_classes: int = 0, data: str = "device-fake",
                                              1, device)
 
 
+def idle_share(prof, lo: int, hi: int) -> float:
+    """One minus the union of the device operations' intervals over the
+    traced window ``[lo, hi]`` (ns on the profiler's clock)."""
+    import torch
+
+    cpu, busy, end = torch.autograd.DeviceType.CPU, 0, lo
+    for s, e in sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                       if e.device_type() != cpu and not e.is_user_annotation()):
+        s, e = max(s, end), min(e, hi)
+        if e > s:
+            busy, end = busy + e - s, e
+    return 1 - busy / (hi - lo)
+
+
 def report(prof, n: int, wall: float, smi: str, kernels: dict, top: int, name: str,
-           unit: str = "step", wall_note: str = "no profiler") -> None:
+           window, recording, unit: str = "step", wall_note: str = "no profiler") -> None:
     """Prints the traced device time of ``n`` units (steps) of ``wall``
-    seconds each: busy ms, idle share, kernels, the hand-written kernels'
-    launches, time by kind of kernel and the ``top`` kernels; writes the
+    seconds each: busy ms, the idle share of the traced ``window`` (``(lo,
+    hi)`` ns on the profiler's clock), kernels, the hand-written kernels'
+    launches, the host ms of each span of ``recording`` (the span
+    recorder's), time by kind of kernel and the ``top`` kernels; writes the
     trace to ``chiprun_out/torch_step_trace_<name>.json``."""
     import torch
 
@@ -133,9 +151,17 @@ def report(prof, n: int, wall: float, smi: str, kernels: dict, top: int, name: s
     print(f"card: {smi}")
     print(f"wall {1e3 * wall:.2f} ms/{unit} ({wall_note}), device busy "
           f"{busy_us / 1e3 / n:.2f} ms/{unit}, idle share "
-          f"{1 - busy_us / 1e6 / n / wall:.3f}, device kernels {len(traced) / n:.0f}/{unit}, "
+          f"{idle_share(prof, *window):.3f}, device kernels {len(traced) / n:.0f}/{unit}, "
           + ", ".join(f"{k} launches {mod.launches / n:.0f}/{unit}"
                       for k, mod in kernels.items()))
+    by_span = collections.defaultdict(lambda: [0, 0])  # host ns, count
+    for s in recording.spans:
+        by_span[s.name][0] += s.end - s.start
+        by_span[s.name][1] += 1
+    print(f"{'host ms/' + unit:>14} {'calls/' + unit:>10}  program span "
+          f"(host_syncs {recording.counts.get('host_syncs', 0) / n:.1f}/{unit})")
+    for span_name, (ns, calls) in sorted(by_span.items(), key=lambda kv: -kv[1][0]):
+        print(f"{ns / 1e6 / n:14.3f} {calls / n:10.1f}  {span_name}")
     averages = [e for e in prof.key_averages() if is_kernel(e)]
     by_kind = collections.Counter()
     for e in averages:
@@ -159,6 +185,7 @@ def profile_step(opts, smi: str) -> None:
     from gan_lib_tensorflow_tpu_torch.ops import fadein
     from gan_lib_tensorflow_tpu_torch.ops import power_iteration as pi
     from gan_lib_tensorflow_tpu_torch.train import make_train_step
+    from gan_lib_tensorflow_tpu_torch.utils import profiler
 
     spec, state, batches = build_step(opts.model, opts.num_classes, opts.data,
                                       s2d_from=opts.s2d_from)
@@ -181,13 +208,17 @@ def profile_step(opts, smi: str) -> None:
     for mod in kernels.values():
         mod.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiler.enable()
+        lo = profiler._now()
         for _ in range(opts.steps):
             metrics = step_fn(state, next(batches))
-        float(metrics["d_loss"])
         torch.cuda.synchronize()
+        hi = profiler._now()
+        recording = profiler.drain()
+        float(metrics["d_loss"])
     name = opts.model + (f"_{opts.num_classes}c" if opts.num_classes else "") + (
         f"_s2d{opts.s2d_from}" if opts.s2d_from is not None else "")
-    report(prof, opts.steps, wall, smi, kernels, opts.top, name)
+    report(prof, opts.steps, wall, smi, kernels, opts.top, name, (lo, hi), recording)
 
 
 # the traced eval's images per side: a quarter of Karras's 16,384 keeps the
@@ -217,6 +248,7 @@ def profile_pggan_eval(opts, smi: str) -> None:
     from gan_lib_tensorflow_tpu_torch.cli import evaluate, train_pggan
     from gan_lib_tensorflow_tpu_torch.data import write_rich_pyramid
     from gan_lib_tensorflow_tpu_torch.ops import fadein
+    from gan_lib_tensorflow_tpu_torch.utils import profiler
 
     t0 = time.perf_counter()
     for _ in range(100_000):
@@ -252,8 +284,12 @@ def profile_pggan_eval(opts, smi: str) -> None:
         fadein.launches = 0
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profiler.enable()
+            lo = profiler._now()
             prec = evaluate.main(eval_args(160, TRACED_SWD_SAMPLES))
             torch.cuda.synchronize()
+            hi = profiler._now()
+            recording = profiler.drain()
         wall = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -276,8 +312,8 @@ def profile_pggan_eval(opts, smi: str) -> None:
         dev_us, host_us, calls = spans[name]
         share = "outside" if name.startswith("pggan_eval") else f"{dev_us / 1e6 / swd_s:.3f}"
         print(f"{dev_us / 1e6:9.3f} {host_us / 1e6:9.3f} {calls:7d} {share:>18}  {name}")
-    report(prof, 1, wall, smi, {"fadein_blend": fadein}, opts.top, "pggan_eval",
-           unit="eval", wall_note="under the profiler")
+    report(prof, 1, wall, smi, {"fadein_blend": fadein}, opts.top, "pggan_eval", (lo, hi),
+           recording, unit="eval", wall_note="under the profiler")
     print(json.dumps({"record": rec, "profiled_record": prec, "card": smi,
                       "ranges": {k: {"device_s": v[0] / 1e6, "host_s": v[1] / 1e6,
                                      "calls": v[2]} for k, v in spans.items()}}))
