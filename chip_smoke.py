@@ -6,7 +6,7 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (each prints its own lines; any failure exits non-zero before the
 final line):
   1. device: torch's name for the card, and nvidia-smi's name and power limit
-  2. build: compile both hand-written kernels (nvcc, sm_90a) and the two
+  2. build: compile the three hand-written kernels (nvcc, sm_90a) and the two
      image decoders (JPEG/PNG and WebP; the host's C++ compiler) from csrc/,
      one compiler process per source, started together
   3. power-iteration kernel vs plain: the batched power-iteration kernel
@@ -288,6 +288,19 @@ final line):
      ``tools.plot_ladder`` on (b)'s run and ``tools.plot_dose_response`` on
      (c)'s JSON: each PNG decoded by ``data/codec.py`` at the tool's size,
      its ``Title`` text chunk the tool's title, pixels drawn in each panel
+ 21. batch-norm kernels (``csrc/batch_norm.cu``, which replaces no TPU
+     kernel) at the SNGAN-projection ImageNet-128 G's 11 norm shapes, bf16
+     channels-last with the fused ReLU: the G update's (batch 64, forward
+     and backward) and the fakes' (5 x 64 in 5 groups, forward); each
+     against its HBM bound (the kernels' own bytes: 6 per element forward,
+     10 backward; beside it the share of the function's least bytes, 4 and
+     6: x in and y out, x and dy in and dx out), the plain version and
+     ``F.batch_norm`` + ReLU as the library yardstick (per-channel affine
+     only: it computes BN, not conditional BN; the port never calls it); y
+     held to the plain version at every shape; at the G update's, through
+     autograd with the running statistics advancing, y, the running mean
+     and var, dx and the gamma/beta rows' gradients held to the plain
+     version's at ``tests/test_torch_batch_norm_cuda.py``'s tolerances
 
 The power iteration's ``launches`` in the kernels' record are those of
 phase 5's SNGAN run, phase 12's conditional SNGAN run, every run of
@@ -302,7 +315,10 @@ phase 18's ladder and 1024^2 steps, and phase 20's ladder (b). The
 doctor's launches (one of each kernel, in its own process) are printed in
 phase 20 and not counted here.
 
-The line before the last is the kernels' JSON record; the last line is
+The batch norm's ``launches`` are its forward and backward calls in phase
+5's SNGAN run (14 forward and 7 backward a step, checked) and phase 11's
+ImageNet-128 run (22 and 11 a step, and 11 forward for the last step's
+sample grid, checked). The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -341,6 +357,15 @@ PGGAN_WARM, PGGAN_TIMED = 3, 10
 FADEIN_MAIN_SHAPES = [(4, 3, 1024, 1024), (4, 32, 512, 512)]
 FADEIN_PALLAS_SHAPE = (3, 17, 9, 4)  # tests/test_pallas.py:37
 FADEIN_BLOCK_ELEMS = 1024 * 4  # one block of csrc/fadein_blend.cu: 1024 threads x float4
+
+# (channels, spatial size) of the SNGAN-projection ImageNet-128 G's 11 norms in
+# forward order (block0-4 bn1, bn2 conditional; bn_out plain BN)
+BN_G_SHAPES = [(1024, 4), (1024, 8), (1024, 8), (512, 16), (512, 16), (256, 32), (256, 32),
+               (128, 64), (128, 64), (64, 128), (64, 128)]
+BN_G_NAMES = ["block0.bn1", "block0.bn2", "block1.bn1", "block1.bn2", "block2.bn1",
+              "block2.bn2", "block3.bn1", "block3.bn2", "block4.bn1", "block4.bn2", "bn_out"]
+BN_FWD_BYTES, BN_BWD_BYTES = 6, 10  # bf16: x twice and y once; x and dy twice and dx once
+BN_MIN_FWD_BYTES, BN_MIN_BWD_BYTES = 4, 6  # the function's least: each tensor once
 
 # [fan_in, out] of the 11 CIFAR-D spectral-norm weights, and of test_pallas.py
 CIFAR_D_SHAPES = ([(27, 128), (1152, 128), (3, 128), (1152, 128), (1152, 128),
@@ -575,6 +600,125 @@ def compare_fadein(fd, torch):
         second.append(gw)
     torch.testing.assert_close(second[0], second[1], rtol=1e-5, atol=1e-6)
     return err
+
+
+def backward_against_plain(norms, x, gamma, beta, name, gen):
+    """One forward through autograd with the running statistics advancing
+    and its backward, kernels against the plain version on the same x, dy,
+    gamma and beta: y, the running mean and var, dx and the gamma/beta
+    gradients (rows, or summed over the samples for bn_out), at the
+    tolerances of ``tests/test_torch_batch_norm_cuda.py``. Returns dy (zeroed
+    where the plain float32 y lies within 1e-3 of the ReLU's 0, as there)."""
+    import torch
+
+    c = x.shape[1]
+    sides = []
+    for _ in range(2):
+        sides.append([t.detach().clone().requires_grad_() for t in (x, gamma, beta)]
+                     + [torch.zeros(c, device="cuda"), torch.ones(c, device="cuda")])
+    (xk, gk, bk, rmk, rvk), (xp, gp, bp, rmp, rvp) = sides
+    with torch.no_grad():
+        far = norms.plain_batch_norm(x, gamma, beta, rmp.clone(), rvp.clone(), torch.float32,
+                                     update_stats=False).abs() > 1e-3
+    dy = torch.randn(x.shape, device="cuda", generator=gen) * far
+    dy = dy.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    yk = norms.batch_norm(xk, gk, bk, rmk, rvk, torch.bfloat16, update_stats=True, relu=True)
+    yp = norms.plain_batch_norm(xp, gp, bp, rmp, rvp, torch.bfloat16, update_stats=True, relu=True)
+    yk.backward(dy)
+    yp.backward(dy)
+
+    def close(got, want, rtol, atol, what):
+        got, want = got.detach(), want.detach()
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol,
+                                   msg=lambda m: f"batch norm {name}, {what}: {m}")
+        return float((got.float() - want.float()).abs().max())
+
+    errs = [close(yk, yp, 2 ** -7, 1e-5, "y"),
+            close(rmk, rmp, 1e-5, 1e-6, "running mean"), close(rvk, rvp, 1e-5, 1e-6, "running var")]
+    for got, want, rtol, what in ((xk.grad, xp.grad, 2 ** -7, "dx"), (gk.grad, gp.grad, 1e-4, "gamma"),
+                                  (bk.grad, bp.grad, 1e-4, "beta")):
+        errs.append(close(got, want, rtol, 1e-4 * float(want.abs().max()), what))
+    print(f"batch_norm {name} [{', '.join(map(str, x.shape))}] through autograd, running "
+          f"statistics advancing: kernels vs plain, max abs err y {errs[0]:.3e}, running mean "
+          f"{errs[1]:.3e}, var {errs[2]:.3e}, dx {errs[3]:.3e}, gamma {errs[4]:.3e}, beta "
+          f"{errs[5]:.3e}", flush=True)
+    return dy
+
+
+def batch_norm_timing(card: str) -> dict:
+    """Phase 21: the batch-norm kernels at the ImageNet-128 G's shapes (see
+    the module's note); returns the kernels' record (sums over the 11
+    shapes of the G update's forward and backward)."""
+    import torch
+    import torch.nn.functional as F
+    from gan_lib_tensorflow_tpu_torch.ops import norms
+
+    cl = torch.channels_last
+    rec = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    for (c, s), name in zip(BN_G_SHAPES, BN_G_NAMES):
+        for batch, groups in ((64, 1), (320, 5)):
+            x = torch.randn(batch, c, s, s, device="cuda", generator=gen)
+            x = (x * 1.5 + 0.3).to(torch.bfloat16).contiguous(memory_format=cl)
+            rm, rv = torch.zeros(c, device="cuda"), torch.ones(c, device="cuda")
+            if name == "bn_out":
+                gamma = 1 + 0.2 * torch.randn(c, device="cuda", generator=gen)
+                beta = 0.2 * torch.randn(c, device="cuda", generator=gen)
+            else:
+                gamma = 1 + 0.2 * torch.randn(batch, c, device="cuda", generator=gen)
+                beta = 0.2 * torch.randn(batch, c, device="cuda", generator=gen)
+            count = batch // groups * s * s
+            call = norms._Call(groups, True, count, True, torch.bfloat16)
+            n = x.numel()
+
+            def plain(x=x, gamma=gamma, beta=beta, rm=rm, rv=rv, groups=groups):
+                return norms.plain_batch_norm(x, gamma, beta, rm, rv, torch.bfloat16,
+                                              groups=groups, update_stats=False, relu=True)
+
+            def library(x=x, rm=rm, rv=rv, w=torch.ones(c, device="cuda"),
+                        b=torch.zeros(c, device="cuda")):
+                return F.relu(F.batch_norm(x, rm, rv, w, b, training=True, eps=norms.EPSILON))
+
+            def kernel(x=x, gamma=gamma, beta=beta, rm=rm, rv=rv, call=call):
+                return norms.launch_forward(x, gamma, beta, rm, rv, call, False)[0]
+
+            y, sums = norms.launch_forward(x, gamma, beta, rm, rv, call, False)
+            err = float((y.float() - plain().float()).abs().max())
+            check(err <= 0.0625, f"batch norm {name} at batch {batch}: y differs by {err}")
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            fns = {"kernel": kernel, "plain": plain, "library": library}
+            if groups == 1:
+                dy = backward_against_plain(norms, x, gamma, beta, name, gen)
+                fns["kernel_bwd"] = lambda x=x, dy=dy, g=gamma, b=beta, s_=sums, c_=call: \
+                    norms.launch_backward(x, dy, g, b, s_, c_)
+            t = timed_in_turns(fns, 10)
+            f_bound = 1e3 * BN_FWD_BYTES * n / PEAK_BYTES_PER_S
+            b_bound = 1e3 * BN_BWD_BYTES * n / PEAK_BYTES_PER_S
+            line = (f"batch_norm {name} [{batch}, {c}, {s}, {s}] groups {groups}: forward "
+                    f"kernel {1e3 * t['kernel']:.2f} us (bound {1e3 * f_bound:.2f} us, "
+                    f"{100 * f_bound / t['kernel']:.1f}% of {PEAK_BYTES_PER_S / 1e12:.2f} TB/s; "
+                    f"{100 * f_bound * BN_MIN_FWD_BYTES / BN_FWD_BYTES / t['kernel']:.1f}% on "
+                    f"the function's {BN_MIN_FWD_BYTES} B), "
+                    f"plain {1e3 * t['plain']:.2f} us, F.batch_norm+relu "
+                    f"{1e3 * t['library']:.2f} us")
+            if groups == 1:
+                line += (f"; backward kernel {1e3 * t['kernel_bwd']:.2f} us (bound "
+                         f"{1e3 * b_bound:.2f} us, {100 * b_bound / t['kernel_bwd']:.1f}%; "
+                         f"{100 * b_bound * BN_MIN_BWD_BYTES / BN_BWD_BYTES / t['kernel_bwd']:.1f}"
+                         f"% on the function's {BN_MIN_BWD_BYTES} B)")
+                rec["ms"] += t["kernel"] + t["kernel_bwd"]
+                rec["bound_ms"] += f_bound + b_bound
+                rec["plain_ms"] += t["plain"]
+                rec["library_ms"] += t["library"]
+            print(f"{line}; max |y - plain| {err:.3e}  [{card}]", flush=True)
+            del x, y, fns
+    x = torch.randn(64, 128, 64, 64, device="cuda").to(torch.bfloat16).contiguous(memory_format=cl)
+    m = norms.BatchNorm(128, compute_dtype=torch.bfloat16).cuda()
+    print(f"batch_norm: host {host_us(lambda: m(x, relu=True, update_stats=False), 200):.1f} us "
+          f"per forward wrapper call (no autograd)  [{card}]")
+    print("batch_norm record: ms, bound_ms sum the 11 G-update shapes' forward and backward "
+          "kernels; plain_ms, library_ms their forwards only (not comparable to ms)")
+    return rec
 
 
 def snapshot(st):
@@ -1026,13 +1170,15 @@ def data_layer_and_north_star(card: str, tmp: str) -> None:
           f"reals, {ns_s:.1f} s  [{card}]")
 
 
-def imagenet128(card: str, tmp: str) -> None:
-    """Phase 11, in the temporary directory ``tmp``."""
+def imagenet128(card: str, tmp: str) -> int:
+    """Phase 11, in the temporary directory ``tmp``; returns the batch-norm
+    kernels' forward and backward calls in its run."""
     import numpy as np
     import torch
     from gan_lib_tensorflow_tpu_torch.cli import train_sngan_imagenet
     from gan_lib_tensorflow_tpu_torch.data.packed import finalize_store, write_store
     from gan_lib_tensorflow_tpu_torch.models import sngan
+    from gan_lib_tensorflow_tpu_torch.ops import norms
     from gan_lib_tensorflow_tpu_torch.ops import power_iteration as pi
 
     store = os.path.join(tmp, "imagenet128")
@@ -1050,7 +1196,7 @@ def imagenet128(card: str, tmp: str) -> None:
     run = os.path.join(tmp, "imagenet_run")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    pi.launches = 0  # count this path's launches only
+    pi.launches = norms.launches = norms.backward_launches = 0  # this path's launches only
     t0 = time.perf_counter()
     state = train_sngan_imagenet.main([
         "--data", store, "--device", "cuda", "--steps", str(IMAGENET_STEPS),
@@ -1062,6 +1208,12 @@ def imagenet128(card: str, tmp: str) -> None:
     peak = torch.cuda.max_memory_allocated()
     check(state.step == IMAGENET_STEPS and launches == (N_CRITIC + 1) * IMAGENET_STEPS,
           f"power-iteration launches {launches} in {state.step} steps, want 6 per step")
+    # 11 norms in the fakes' forward and 11 in the G update's, 11 backward a
+    # step; the last step's sample grid adds one forward of G (11)
+    bn = (norms.launches - norms.backward_launches, norms.backward_launches)
+    check(bn == (22 * IMAGENET_STEPS + 11, 11 * IMAGENET_STEPS),
+          f"batch-norm calls (forward, backward) {bn} in {state.step} steps and a sample grid, "
+          f"want 22 and 11 a step and 11 for the grid")
     d = state.d
     dims = [(m.weight[0].numel(), m.weight.shape[0]) for m in d.sn_layers]
     check(len(dims) == 19, f"{len(dims)} SN weights in the ImageNet-128 D")
@@ -1074,7 +1226,8 @@ def imagenet128(card: str, tmp: str) -> None:
           f"{N_CRITIC}, bf16, from the store held on the card: images/s/GPU "
           f"{N_CRITIC * BATCH / sps:.1f}  ms/step {1e3 * sps:.2f} (steps "
           f"{IMAGENET_STEPS - LOG_EVERY + 1}-{IMAGENET_STEPS})  peak memory "
-          f"{peak / 2**20:.0f} MiB  kernel launches {launches} in {IMAGENET_STEPS} steps; "
+          f"{peak / 2**20:.0f} MiB  kernel launches {launches} in {IMAGENET_STEPS} steps "
+          f"(batch norm: {bn[0]} forward, {bn[1]} backward calls); "
           f"{run_s:.1f} s for the run with its build  [{card}]")
     stream_ctas = [c for c in plan.ctas if c.kind == pi.STREAM]
     check(len(stream_ctas) == len(plan.ctas) == max_ctas and plan.items,
@@ -1168,6 +1321,7 @@ def imagenet128(card: str, tmp: str) -> None:
         print(f"  {label}: {len(sel)} weights, {w_bytes} B of W, {1e3 * sub_ms:.2f} us, "
               f"{w_bytes / sub_ms / 1e9:.3f} TB/s of W read once, bound "
               f"{1e6 * w_bytes / PEAK_BYTES_PER_S:.2f} us  [{card}]")
+    return sum(bn)
 
 
 def acgan_and_conditional_sngan(card: str, tmp: str) -> int:
@@ -3641,7 +3795,7 @@ def main() -> None:
         from gan_lib_tensorflow_tpu_torch.data import codec
         from gan_lib_tensorflow_tpu_torch.models import pggan, sngan
         from gan_lib_tensorflow_tpu_torch.ops import fadein as fd
-        from gan_lib_tensorflow_tpu_torch.ops import init_weights
+        from gan_lib_tensorflow_tpu_torch.ops import init_weights, norms
         from gan_lib_tensorflow_tpu_torch.ops import power_iteration as pi
         from gan_lib_tensorflow_tpu_torch.train import (LoopConfig,
                                                         make_train_step,
@@ -3666,12 +3820,12 @@ def main() -> None:
 
     phase("2 build")
     t0 = time.perf_counter()
-    libraries = [pi.library, fd.library, codec.library, codec.webp_library]
+    libraries = [pi.library, fd.library, norms.library, codec.library, codec.webp_library]
     with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
         for fut in [pool.submit(lib.load) for lib in libraries]:
             fut.result()
     build_s = time.perf_counter() - t0
-    print(f"kernels and the image decoders build+load (nvcc x2 and the host C++ compiler x2, "
+    print(f"kernels and the image decoders build+load (nvcc x3 and the host C++ compiler x2, "
           f"in parallel): {build_s:.2f} s")
     for lib in libraries:
         for line in lib.build_log.splitlines():
@@ -3722,7 +3876,7 @@ def main() -> None:
     step_fn = make_train_step(spec)
     logs = []
     log_fn = lambda it, m: logs.append((it, m))
-    pi.launches = 0  # count this path's launches only
+    pi.launches = norms.launches = norms.backward_launches = 0  # this path's launches only
     train_loop(state, step_fn, source, LoopConfig(WARM_STEPS, WARM_STEPS), log_fn)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3736,11 +3890,16 @@ def main() -> None:
     n_steps = WARM_STEPS + TIMED_STEPS
     check(main_launches == 6 * n_steps,
           f"kernel launched {main_launches} times in {n_steps} steps, want 6 per step")
+    bn_main = (norms.launches - norms.backward_launches, norms.backward_launches)
+    check(bn_main == (14 * n_steps, 7 * n_steps),
+          f"batch-norm calls (forward, backward) {bn_main} in {n_steps} steps, want 14 and 7 "
+          f"a step (G's 7 norms in the fakes' forward and the G update's)")
     print(f"metrics: {logs}")
     print(f"images/s/GPU: {timed['images_per_sec_per_card']:.1f}  "
           f"ms/step: {1e3 * timed['sec_per_step']:.2f}  "
           f"peak memory: {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB  "
-          f"kernel launches: {main_launches} in {n_steps} steps  [{smi.splitlines()[0]}]")
+          f"kernel launches: {main_launches} in {n_steps} steps (batch norm: {bn_main[0]} "
+          f"forward, {bn_main[1]} backward calls)  [{smi.splitlines()[0]}]")
 
     # the trained networks in float32 on the card vs on the CPU (plain SN)
     d32, g32 = sngan.cifar_discriminator(), sngan.cifar_generator()
@@ -3946,7 +4105,7 @@ def main() -> None:
     t11 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        imagenet128(card, tmp)
+        bn_imagenet = imagenet128(card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 11: {time.perf_counter() - t11:.1f} s  [{card}]")
@@ -4032,6 +4191,9 @@ def main() -> None:
         shutil.rmtree(tmp, ignore_errors=True)
         shutil.rmtree(kept, ignore_errors=True)
     print(f"phase 20: {time.perf_counter() - t20:.1f} s  [{card}]")
+
+    phase("21 batch-norm kernels at the ImageNet-128 G's shapes")
+    bn_rec = batch_norm_timing(card)
     ends = sorted(PHASE_STARTS.items()) + [(None, time.perf_counter())]
     print("phase seconds: " + ", ".join(f"{n} {t1 - t0:.1f}" for (n, t0), (_, t1)
                                         in zip(ends, ends[1:]))
@@ -4061,6 +4223,18 @@ def main() -> None:
         "bound_ms": fade["bound_ms"],
         "bound_by": "bytes",
         "library_ms": fade["library_ms"],
+    }, {
+        "name": "batch_norm",
+        "route": "cuda",
+        "source": "gan_lib_tensorflow_tpu_torch/csrc/batch_norm.cu",
+        "replaces": None,
+        "launches": sum(bn_main) + bn_imagenet,
+        "max_abs_err": bn_rec["max_abs_err"],
+        "ms": bn_rec["ms"],
+        "plain_ms": bn_rec["plain_ms"],
+        "bound_ms": bn_rec["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": bn_rec["library_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

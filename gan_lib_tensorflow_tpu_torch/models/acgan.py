@@ -61,8 +61,8 @@ class ACGANGenerator(nn.Module):
                    .permute(0, 3, 1, 2))
         for i in range(2):
             h = getattr(self, f"deconv{i}")(h)
-            h = F.relu(getattr(self, f"bn{i}")(h, use_running_average=not train,
-                                               update_stats=update_stats))
+            h = getattr(self, f"bn{i}")(h, use_running_average=not train,
+                                        update_stats=update_stats, relu=True)
         return torch.tanh(self.deconv_out(h).float()).permute(0, 2, 3, 1)
 
 

@@ -70,7 +70,7 @@ class ResNetGenerator(nn.Module):
         bn = dict(groups=groups, update_stats=update_stats)
         for i in range(self.n_blocks):
             h = getattr(self, f"block{i}")(h, labels, train=train, **bn)
-        h = F.relu(self.bn_out(h, use_running_average=not train, **bn))
+        h = self.bn_out(h, use_running_average=not train, relu=True, **bn)
         h = self.conv_out(h)
         return torch.tanh(h.float()).permute(0, 2, 3, 1)
 

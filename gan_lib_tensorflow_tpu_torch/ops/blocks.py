@@ -51,9 +51,9 @@ class GenResBlock(nn.Module):
         bn = dict(use_running_average=not train, groups=groups,
                   update_stats=update_stats)
         cond = (labels,) if self.conditional else ()
-        h = F.relu(self.bn1(x, *cond, **bn))
+        h = self.bn1(x, *cond, relu=True, **bn)
         h = self.conv1(h)
-        h = F.relu(self.bn2(h, *cond, **bn))
+        h = self.bn2(h, *cond, relu=True, **bn)
         h = self.conv2(h)
         return h + self.conv_skip(x)
 

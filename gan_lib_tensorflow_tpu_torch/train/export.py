@@ -9,7 +9,9 @@ and StableHLO): ``cli.train_pix2pix --mode export`` and ``cli.sample
 2. ``generator.pt2``: ``torch.export`` of the serve module, its weights and
    every constant it holds (pix2pix's dropout masks, a conditional G's
    classes) inside; ``torch.export.load(path).module()(x)`` runs it with no
-   model code.
+   model code. It is traced inside ``ops.norms.plain_version()``, so its
+   batch norms are the plain version's ATen ops, not the port's CUDA
+   kernels (which the bundle could not call without the package).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Any, Dict
 import torch
 from torch import nn
 
+from ..ops import norms
 from .checkpoint import CheckpointManager
 
 BUNDLE_FILENAME = "generator.pt2"
@@ -34,7 +37,7 @@ def write_serving_bundle(export_dir: str, step: int, payload: Dict[str, Any],
         ckpt.save_payload(step, {"step": int(step), **payload}, wait=True)
     finally:
         ckpt.close()
-    with torch.no_grad():
+    with torch.no_grad(), norms.plain_version():
         program = torch.export.export(serve, (example_input,))
     path = os.path.join(export_dir, BUNDLE_FILENAME)
     torch.export.save(program, path)

@@ -25,8 +25,8 @@ Spans of the port, by layer: ``data.batch`` > ``data.indices``,
 ``d.allreduce``, ``d.optimizer``; ``step.g_update`` > ``g.loss``,
 ``g.backward``, ``g.allreduce``, ``g.optimizer``; ``step.ema``
 (``train/step.py``, ``losses/gradient_penalty.py``);
-``kernel.power_iteration`` (``path``, ``weights``), ``kernel.fadein``
-(``ops/``); ``train_step <n>`` (``train/loop.py``, inside a trace window).
+``kernel.power_iteration`` (``path``, ``weights``), ``kernel.fadein``,
+``kernel.batch_norm`` (each forward call) (``ops/``); ``train_step <n>`` (``train/loop.py``, inside a trace window).
 """
 
 from __future__ import annotations

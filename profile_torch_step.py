@@ -56,7 +56,8 @@ from typing import Optional
 WARMUP = 3  # steps before the timed ones: cuDNN's autotune, the first allocations
 
 # (kind, substrings of a kernel's name), tried in order
-KINDS = [("hand-written", ("power_iteration", "fadein")),
+KINDS = [("hand-written", ("power_iteration", "fadein", "bn_stats_partial", "bn_apply",
+                           "bn_grad_partial", "bn_grad_apply", "bn_sums_combine")),
          ("sort", ("radixsort", "sort")),
          ("conv/matmul", ("xmma", "cudnn", "conv", "gemm", "nvjet")),
          ("cast/copy", ("copy",)),
@@ -182,14 +183,14 @@ def profile_step(opts, smi: str) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from gan_lib_tensorflow_tpu_torch.ops import fadein
+    from gan_lib_tensorflow_tpu_torch.ops import fadein, norms
     from gan_lib_tensorflow_tpu_torch.ops import power_iteration as pi
     from gan_lib_tensorflow_tpu_torch.train import make_train_step
     from gan_lib_tensorflow_tpu_torch.utils import profiler
 
     spec, state, batches = build_step(opts.model, opts.num_classes, opts.data,
                                       s2d_from=opts.s2d_from)
-    kernels = {"power_iteration": pi, "fadein_blend": fadein}
+    kernels = {"power_iteration": pi, "fadein_blend": fadein, "batch_norm": norms}
     step_fn = make_train_step(spec)
     for _ in range(WARMUP):
         step_fn(state, next(batches))
